@@ -6,17 +6,39 @@
 Phases, each of which raises (non-zero exit, no result line) on failure:
   1. environment: torch, CUDA, the card, nvcc, nvidia-smi name and power limit;
   2. build: compile csrc/*.cu with nvcc into build/vo_torch_kernels/;
-  3. each kernel (K1 pair matcher, K2 join candidates, K3 lane gather, K4 fused
-     frame loop) against its plain PyTorch version on the card, on the main
-     path's own inputs (S = 1024 slots x 512 frames), with CUDA-event times;
-  4. path A: the reference-format application — generate_dataset (40 frames,
-     400 landmarks), apps.run_vo_complete on cuda, apps.run_evaluation — held
-     to the accuracy bounds of tests/test_dataset_gen.py;
+  3. each kernel against its plain PyTorch version on the card, with
+     CUDA-event times and its bound on this card: K1 pair matcher, K2 join
+     candidates, K3 lane gather, K4 fused frame loop and K5 its planar form on
+     the main path's own inputs (S = 1024 slots x 512 frames; the plain K4/K5
+     are Python loops: K4 is compared over all 510 tracked frames, K5 over
+     the first 128), K6 standalone solves (SE(3) and planar) at N = 1024 and 8192,
+     K7 map-scale matcher (exact and fast) at Q = 1024, K = 2^20 with masked
+     rows holding NaN; K5's inputs are path D's;
+  4. path A: the reference-format applications — generate_dataset (40 frames,
+     400 landmarks), apps.run_vo_complete, run_vo_se2, run_vo_da_known and
+     run_relocalize (both matcher precisions) on cuda, apps.run_evaluation —
+     held to the accuracy bounds of tests/test_dataset_gen.py, the planar
+     subgroup bound and the relocalization bounds of tests/test_relocalize.py;
   5. path B: pipeline.run_sequence at 1024 slots x 512 frames, held against
-     the same run through the plain versions, and its frames/s.
+     the same run through the plain versions, and its frames/s;
+  6. path C: map-scale relocalization, pipeline.relocalize_frame of 1024
+     queries against a map of 2^20 landmarks in both matcher precisions, and
+     the standalone planar solve at N = 8192;
+  7. path D: the planar estimation group at 1024 slots x 512 frames, on path
+     B's landmark field and orbit seen by a planar robot;
+  8. resume: path B's inputs split at frame 256 through continue_sequence with
+     a checkpoint round trip, held against one shot;
+  9. step form: the first 18 frames of path B through scan_backend="step"
+     (one K6 launch a tracked frame), held against the fused launch.
+``python3 chip_smoke.py --stages`` instead runs the entry points of paths B, C
+and D inside ``profiling.stage_times`` and prints the time of each step the
+pipeline itself marks (ended by a sync, median of 5), then each path's kernel
+times and device-busy share under torch.profiler, and no result line.
+
 The launch counters are zeroed right before each path and read right after;
-every kernel must have launched in both. The last two lines are the kernel
-table ({"kernels": [...]}) and {"ok": true, "device": {...}}.
+every kernel of a path must have launched in it. The last lines are the
+card's name and power limit, the kernel table ({"kernels": [...]}) and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -32,19 +54,37 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+_CSRC = "visual_odometry_tpu_torch/csrc/"
+_PALLAS = "visual_odometry_tpu/ops/pallas/"
 KERNELS = {
-    # name: (source, TPU kernel it replaces)
-    "match_pairs": ("visual_odometry_tpu_torch/csrc/match_pairs.cu",
-                    "visual_odometry_tpu/ops/pallas/matcher_kernel.py:302"),
-    "join_candidates": ("visual_odometry_tpu_torch/csrc/join_candidates.cu",
-                        "visual_odometry_tpu/ops/pallas/frame_kernel.py:134"),
-    "gather_rows": ("visual_odometry_tpu_torch/csrc/gather_rows.cu",
-                    "visual_odometry_tpu/ops/pallas/gather_kernel.py:45"),
-    "track_frames": ("visual_odometry_tpu_torch/csrc/track_frames.cu",
-                     "visual_odometry_tpu/ops/pallas/frame_kernel.py:952"),
+    # launch-counter name: (source, TPU kernel it replaces, the path that holds its `launches`)
+    "match_pairs": (_CSRC + "match_pairs.cu", _PALLAS + "matcher_kernel.py:302", "B"),
+    "join_candidates": (_CSRC + "join_candidates.cu", _PALLAS + "frame_kernel.py:134", "B"),
+    "gather_rows": (_CSRC + "gather_rows.cu", _PALLAS + "gather_kernel.py:45", "B"),
+    "track_frames": (_CSRC + "track_frames.cu", _PALLAS + "frame_kernel.py:952", "B"),
+    "track_frames_planar": (_CSRC + "track_frames.cu", _PALLAS + "picp_kernel.py:617", "D"),
+    "picp_solve": (_CSRC + "picp_solve.cu", _PALLAS + "picp_kernel.py:965", "C"),
+    "picp_solve_se2": (_CSRC + "picp_solve.cu", _PALLAS + "picp_kernel.py:1065", "C"),
+    "best_match": (_CSRC + "best_match.cu", _PALLAS + "matcher_kernel.py:136", "C"),
+    "best_match_fast": (_CSRC + "best_match.cu", _PALLAS + "matcher_kernel.py:136", "C"),
 }
+MAIN_PATH = ("match_pairs", "join_candidates", "gather_rows", "track_frames")
 K4_POSE_TOL = 2e-3   # the repo's fused-vs-scan trajectory tolerance (tests/test_pipeline.py:331)
 K1_DIST_RTOL = 1e-5
+GN_POSE_TOL = 1e-5   # K5/K6 against their plain versions (bitwise expected)
+PLANAR_DEV_TOL = 1e-4
+K4_PLAIN_FRAMES, K5_PLAIN_FRAMES = 510, 128
+MOUNT_V = (0.05, -0.1, 0.02, 0.01, -0.02, 0.015)   # a non-identity camera mount, Euler chart
+
+# Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate,
+# float32 outside the tensor cores, bfloat16 in them.
+PEAK_BYTES_S, PEAK_FP32, PEAK_BF16 = 3.35e12, 67e12, 989e12
+# Float operations of one lane in one GN round (projection, robust kernel,
+# Jacobian, the 30 or 12 products and their share of the block sum) and in one
+# frame's join and triangulation, counted from csrc/gn_loop.cuh and
+# csrc/track_frames.cu.
+ROUND_FLOPS = {False: 240, True: 180}
+FRAME_FLOPS = 130
 
 
 class SmokeFailure(RuntimeError):
@@ -65,20 +105,9 @@ def sync(device) -> None:
 
 def timed_call(fn, device):
     """(fn(), its time in ms): CUDA events on a card, the host clock on the CPU."""
-    import torch
+    from visual_odometry_tpu_torch.utils.timing import cuda_timed
 
-    sync(device)
-    if torch.device(device).type != "cuda":
-        t0 = time.perf_counter()
-        out = fn()
-        return out, 1e3 * (time.perf_counter() - t0)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    end.synchronize()
-    return out, start.elapsed_time(end)
+    return cuda_timed(fn, device)
 
 
 def time_ms(fn, device, reps: int, warmup: int = 1) -> float:
@@ -86,6 +115,16 @@ def time_ms(fn, device, reps: int, warmup: int = 1) -> float:
     for _ in range(warmup):
         fn()
     return statistics.median(timed_call(fn, device)[1] for _ in range(reps))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: float, ops: float, peak_ops: float = PEAK_FP32):
+    """(least time in ms the card could take, "bytes" | "operations")."""
+    t_bytes, t_ops = 1e3 * bytes_moved / PEAK_BYTES_S, 1e3 * ops / peak_ops
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def path_b_inputs(frames: int, slots: int, device):
@@ -96,6 +135,42 @@ def path_b_inputs(frames: int, slots: int, device):
 
     pts, apps, masks = synthetic.generate_tracking_sequence(np.random.default_rng(0), frames, slots)
     return tuple(torch.from_numpy(x).to(device) for x in (pts, apps, masks))
+
+
+def mount_matrix(device):
+    import torch
+
+    from visual_odometry_tpu_torch.ops import se3
+
+    return se3.v2t_euler(torch.tensor(MOUNT_V)).to(device)
+
+
+def path_d_inputs(frames: int, slots: int, device):
+    """Path B's landmark field and orbit seen by a planar robot: the camera
+    pose of frame i is ``c^-1 T(x, y, theta) c`` with the mount c, so the
+    motion lies in the subgroup the planar solver moves in. (Path B's own
+    6-DoF motion is no planar workload: a planar model fitted to it shrinks
+    the monocular scale frame by frame until the poses overflow, in the JAX
+    package as here.)"""
+    import torch
+
+    from visual_odometry_tpu_torch.ops import se3
+    from visual_odometry_tpu_torch.ops.camera import project_points
+    from visual_odometry_tpu_torch.utils import synthetic
+
+    rng = np.random.default_rng(0)
+    world = torch.from_numpy(np.stack([rng.uniform(-1.5, 1.5, slots),
+                                       rng.uniform(-1.2, 1.2, slots),
+                                       rng.uniform(2.0, 4.0, slots)], axis=1).astype(np.float32))
+    apps = torch.from_numpy(synthetic.generate_appearances(rng, slots))
+    mount = mount_matrix("cpu")
+    ph = 2.0 * np.pi * torch.arange(frames, dtype=torch.float32) / 64.0
+    robot = se3.v2t_se2(torch.stack([0.3 * torch.cos(ph), 0.3 * torch.sin(ph),
+                                     0.02 * torch.sin(ph)], dim=-1))
+    poses = se3.inverse(mount) @ robot @ mount
+    pts, masks = zip(*(project_points(synthetic.default_camera(p), world) for p in poses))
+    return (torch.stack(pts).to(device), apps[None].expand(frames, -1, -1).contiguous().to(device),
+            torch.stack(masks).to(device))
 
 
 def kernel_inputs(camera, config, pts, apps, masks):
@@ -109,11 +184,10 @@ def kernel_inputs(camera, config, pts, apps, masks):
     ids = torch.full(masks.shape, -1, dtype=torch.int32, device=masks.device)
     f0 = pipeline.FrameData(pts[0], apps[0], masks[0], ids[0])
     f1 = pipeline.FrameData(pts[1], apps[1], masks[1], ids[1])
-    corr01 = pipeline._match(plain, f0, f1)
-    state, _ = pipeline.initialize(camera, plain, f0, f1, corr=corr01)
+    corr01 = pipeline._match(plain, False, f0, f1)
     rest = pipeline.FrameData(pts[2:], apps[2:], masks[2:], ids[2:])
     prev = pipeline.FrameData(pts[1:-1], apps[1:-1], masks[1:-1], ids[1:-1])
-    corr = pipeline._batched_match(plain, rest, prev)
+    corr = pipeline._batched_match(plain, False, rest, prev)
     src_idx2 = torch.cat([corr01.idx2[None], corr.idx2[:-1]]).contiguous()
     src_valid = torch.cat([corr01.valid[None], corr.valid[:-1]]).contiguous()
     join_args = (src_idx2, src_valid, corr.idx1.contiguous(), corr.valid.contiguous(),
@@ -127,15 +201,19 @@ def kernel_inputs(camera, config, pts, apps, masks):
     app_src = rest.appearances.transpose(1, 2).contiguous()
     app_idx = safe2[:, None, :].expand(app_src.shape).contiguous()
     pix = torch.gather(pix_src, 2, pix_idx.long())
-    k4_args = (
+
+    # K4's arguments, or K5's for a planar config (planarized bootstrap).
+    state, _ = pipeline.initialize(camera, plain, f0, f1, corr=corr01)
+    frame_args = (
         frame_kernel.pack_params(
             camera.camera_matrix, camera.params(), state.x_curr, config.kernel_threshold,
             config.damping, config.gn_tolerance if config.gn_tolerance > 0.0 else -1.0,
-            config.keep_outliers, config.warm_start, config.min_num_inliers,
+            config.keep_outliers, config.warm_start, config.min_num_inliers, config.planar,
+            config.planar_mount(),
         ),
         state.tri_points.contiguous(), state.tri_valid.contiguous(), cand,
         pix[:, 0:2].transpose(1, 2).contiguous(), pix[:, 2:4].transpose(1, 2).contiguous(),
-        corr.valid.contiguous(), config.gn_iterations, config.gn_min_iterations,
+        corr.valid.contiguous(), config.gn_iterations, config.gn_min_iterations, config.planar,
     )
     k1_batch = (prev.appearances.contiguous(), prev.mask.contiguous(),
                 rest.appearances.contiguous(), rest.mask.contiguous())
@@ -146,13 +224,62 @@ def kernel_inputs(camera, config, pts, apps, masks):
         "join_candidates": join_args,
         "gather_rows": (pix_src, pix_idx),
         "gather_rows_apps": (app_src, app_idx),
-        "track_frames": k4_args,
+        "track_frames": frame_args,
     }
 
 
+def head_frames(args, frames: int):
+    """A frame kernel's arguments cut to the first ``frames`` tracked frames."""
+    from visual_odometry_tpu_torch.ops.kernels.frame_kernel import JoinCandidates
+
+    params, tri, tri_ok, cand, prev_al, cur_al, valid = args[:7]
+    cand = JoinCandidates(*(x[:frames].contiguous() for x in cand))
+    return (params, tri, tri_ok, cand, prev_al[:frames].contiguous(),
+            cur_al[:frames].contiguous(), valid[:frames].contiguous()) + tuple(args[7:])
+
+
+def compare_frame_kernel(name, args, plain_frames, device, table, track):
+    """K4 / K5: the kernel against its plain version over the first
+    ``plain_frames`` frames (the plain version is a Python loop with a host
+    sync per GN round), its time at the main path's full depth, and its bound
+    from the GN rounds the plain version counted."""
+    import torch
+
+    from visual_odometry_tpu_torch.ops.kernels import frame_kernel
+
+    planar = bool(args[-1])
+    plain_frames = min(plain_frames, args[3].idx.shape[0])
+    short = head_frames(args, plain_frames)
+    kp = track(*short)[0]
+    rounds = []
+    pp, plain_ms = timed_call(
+        lambda: frame_kernel.track_frames_plain(*short, rounds_out=rounds)[0], device)
+    label = "K5" if planar else "K4"
+    require(bool(torch.isfinite(kp).all()), f"{label}: non-finite poses")
+    err = float((kp - pp).abs().max())
+    tol = GN_POSE_TOL if planar else K4_POSE_TOL
+    require(err <= tol, f"{label}: poses differ by {err} > {tol}")
+    ms = time_ms(lambda: track(*args), device, 3)
+    ms_short = time_ms(lambda: track(*short), device, 3)
+
+    cand = args[3]
+    f, depth, s = cand.idx.shape
+    # The kernel does not report its round count; the plain version's mean
+    # over the compared frames stands for the whole depth.
+    rounds_per_frame = sum(rounds) / len(rounds)
+    moved = nbytes(args[0], args[1], args[2], cand.idx, cand.ok, args[4], args[5], args[6])
+    moved += f * (64 + s * 13 + 16)                      # poses, triangulation, stats out
+    ops = f * s * (rounds_per_frame * ROUND_FLOPS[planar] + FRAME_FLOPS)
+    bound_ms, bound_by = bound(moved, ops)
+    table[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=None, plain_frames=plain_frames,
+                       ms_at_plain_frames=ms_short, gn_rounds_per_frame=rounds_per_frame,
+                       us_per_gn_round=1e3 * ms_short / sum(rounds))
+
+
 def compare_kernels(inputs, device, kernel_fns, reps: int = 10):
-    """Run each kernel and its plain version on the same inputs; returns
-    {name: (max_abs_err, kernel_ms, plain_ms)} and raises on disagreement."""
+    """K1-K4: run each kernel and its plain version on the same inputs; returns
+    {name: row fields} and raises on disagreement."""
     import torch
 
     from visual_odometry_tpu_torch.ops.kernels import frame_kernel, gather_kernel, matcher_kernel
@@ -175,63 +302,234 @@ def compare_kernels(inputs, device, kernel_fns, reps: int = 10):
 
     a = inputs["match_pairs"]
     err = max(k1_check(a, "B=510"), k1_check(inputs["match_pairs_b1"], "B=1"))
-    out["match_pairs"] = (err, time_ms(lambda: kernel_fns["match_pairs"](*a), device, reps),
-                          time_ms(lambda: matcher_kernel.match_pairs_plain(*a), device, 3))
+    b, n, d = a[0].shape
+    bound_ms, bound_by = bound(nbytes(*a) + 4 * b * n * 4, b * n * n * (2 * d + 3))
+    out["match_pairs"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: kernel_fns["match_pairs"](*a), device, reps),
+        plain_ms=time_ms(lambda: matcher_kernel.match_pairs_plain(*a), device, 3),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
     a = inputs["join_candidates"]
     kc = kernel_fns["join_candidates"](*a)
     pc = frame_kernel.join_candidates_plain(*a)
     require(all(torch.equal(x, y) for x, y in zip(kc, pc)), "K2: join candidates differ")
-    out["join_candidates"] = (0.0, time_ms(lambda: kernel_fns["join_candidates"](*a), device, reps),
-                              time_ms(lambda: frame_kernel.join_candidates_plain(*a), device, 3))
+    f, s = a[0].shape
+    bound_ms, bound_by = bound(nbytes(*a[:4]) + nbytes(*kc), f * s * s)   # one compare a pair
+    out["join_candidates"] = dict(
+        max_abs_err=0.0, ms=time_ms(lambda: kernel_fns["join_candidates"](*a), device, reps),
+        plain_ms=time_ms(lambda: frame_kernel.join_candidates_plain(*a), device, 3),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
     for key in ("gather_rows", "gather_rows_apps"):
         a = inputs[key]
         require(torch.equal(kernel_fns["gather_rows"](*a), gather_kernel.gather_rows_plain(*a)),
                 f"K3 {key}: gathers differ")
     a = inputs["gather_rows_apps"]
-    out["gather_rows"] = (0.0, time_ms(lambda: kernel_fns["gather_rows"](*a), device, reps),
-                          time_ms(lambda: gather_kernel.gather_rows_plain(*a), device, reps))
+    idx64 = a[1].long()
+    bound_ms, bound_by = bound(2 * nbytes(a[0]) + nbytes(a[1]), 0.0)
+    out["gather_rows"] = dict(
+        max_abs_err=0.0, ms=time_ms(lambda: kernel_fns["gather_rows"](*a), device, reps),
+        plain_ms=time_ms(lambda: gather_kernel.gather_rows_plain(*a), device, reps),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=time_ms(lambda: torch.gather(a[0], 2, idx64), device, reps))
 
-    a = inputs["track_frames"]
-    kp = kernel_fns["track_frames"](*a)[0]
-    # The plain K4 syncs with the host every GN round: one timed run.
-    pp, plain_ms = timed_call(lambda: frame_kernel.track_frames_plain(*a)[0], device)
-    require(bool(torch.isfinite(kp).all()), "K4: non-finite poses")
-    err = float((kp - pp).abs().max())
-    require(err <= K4_POSE_TOL, f"K4: poses differ by {err} > {K4_POSE_TOL}")
-    out["track_frames"] = (err, time_ms(lambda: kernel_fns["track_frames"](*a), device, 3),
-                           plain_ms)
+    compare_frame_kernel("track_frames", inputs["track_frames"], K4_PLAIN_FRAMES, device, out,
+                         kernel_fns["track_frames"])
     return out
 
 
-def run_path_a(work_dir: str, device, require_launches: bool):
-    """The reference-format application on a generated dataset."""
-    from visual_odometry_tpu_torch import apps
-    from visual_odometry_tpu_torch.ops.kernels import _lib
-    from visual_odometry_tpu_torch.utils import dataset_gen
+def solve_problem(n: int, planar: bool, device, seed: int = 0):
+    """A standalone PICP problem: N model points seen under a ground-truth pose
+    (planar: a conjugated SE(2) motion), with pixel noise and dead slots."""
+    import torch
 
-    data, out = os.path.join(work_dir, "data"), os.path.join(work_dir, "out")
-    dataset_gen.generate_dataset(data, num_frames=40, num_landmarks=400, seed=1)
-    _lib.reset_launches()
-    apps.run_vo_complete(data, out, device=device, verbose=True)
-    sync(device)
+    from visual_odometry_tpu_torch.ops import se3
+    from visual_odometry_tpu_torch.ops.camera import project_points
+    from visual_odometry_tpu_torch.utils import synthetic
+
+    rng = np.random.default_rng(seed)
+    world = torch.from_numpy(np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-1.2, 1.2, n),
+                                       rng.uniform(2.0, 4.0, n)], 1).astype(np.float32))
+    mount = mount_matrix("cpu")
+    if planar:
+        gt = se3.inverse(mount) @ se3.v2t_se2(torch.tensor([0.1, -0.05, 0.04])) @ mount
+    else:
+        gt = se3.v2t_euler(torch.tensor([0.1, -0.05, 0.02, 0.01, 0.02, -0.03]))
+    uv, ok = project_points(synthetic.default_camera(gt), world)
+    uv = uv + torch.from_numpy(rng.normal(0, 0.3, (n, 2)).astype(np.float32))
+    w = ok.float()
+    w[::9] = 0.0
+    world = torch.where(w[:, None] > 0, world, 1.0)   # dead slots sanitized, as picp.solve does
+    cam = synthetic.default_camera(device=device)
+    head = (cam.camera_matrix, cam.world_in_camera, cam.params())
+    if planar:
+        head += (mount.to(device),)
+    return head + (world.to(device), uv.to(device), w.to(device), 30, 1e4, 1.0, 1e-12), gt
+
+
+def compare_solves(device, table, backend: str = "cuda", reps: int = 10):
+    """K6: both standalone solves against their plain versions at N = 1024 and
+    N = 8192 (more points than the block has threads)."""
+    from visual_odometry_tpu_torch.ops.kernels import picp_kernel
+
+    for planar, name in ((False, "picp_solve"), (True, "picp_solve_se2")):
+        fn = picp_kernel.solve_se2_fused if planar else picp_kernel.solve_fused
+        plain = picp_kernel.solve_se2_fused_plain if planar else picp_kernel.solve_fused_plain
+        row = dict(max_abs_err=0.0, library_ms=None)
+        for n in (1024, 8192):
+            args, gt = solve_problem(n, planar, device)
+            pose, stats = fn(*args, backend=backend)
+            rounds = []
+            (pose_p, stats_p), plain_ms = timed_call(lambda: plain(*args, rounds_out=rounds),
+                                                     device)
+            err = float((pose - pose_p).abs().max())
+            require(err <= GN_POSE_TOL, f"K6 {name} N={n}: poses differ by {err}")
+            require(int(stats.num_inliers) == int(stats_p.num_inliers),
+                    f"K6 {name} N={n}: inlier counts differ")
+            require(float((pose.cpu() - gt).abs().max()) < 5e-3,
+                    f"K6 {name} N={n}: the solve missed the ground-truth pose")
+            ms = time_ms(lambda: fn(*args, backend=backend), device, reps)
+            launch_ms = None
+            if backend == "cuda":   # the launch alone, the parameter row packed beforehand
+                head, tail = (args[:3], args[4:]) if planar else (args[:3], args[3:])
+                params = picp_kernel.pack_params(
+                    head[0], head[2], head[1], tail[4], tail[5], tail[6], False, False, 0.0,
+                    planar, args[3] if planar else None, k_inverse=False)
+                packed = (params, *tail[:3], tail[3], 1, planar)
+                launch_ms = time_ms(lambda: picp_kernel._solve_cuda(*packed), device, reps)
+            moved = n * 6 * 4 + (64 if planar else 40) * 4 + 19 * 4
+            bound_ms, bound_by = bound(moved, rounds[0] * n * ROUND_FLOPS[planar])
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row[f"n{n}"] = dict(ms=ms, launch_ms=launch_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, gn_rounds=rounds[0])
+        # The row's times are those of the shape its path runs: path C solves
+        # 1024 matches in SE(3); the standalone planar solve takes N = 8192.
+        row.update(row["n8192" if planar else "n1024"])
+        table[name] = row
+
+
+def match_problem(nq: int, nk: int, device, seed: int = 0):
+    """Queries near database rows; a tenth of the rows and a twentieth of the
+    queries masked, NaN written into the masked rows."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    db = rng.uniform(-1.0, 1.0, (nk, 10)).astype(np.float32)
+    pick = rng.permutation(nk)[:nq]
+    q = (db[pick] + rng.normal(0, 1e-3, (nq, 10))).astype(np.float32)
+    db_mask = rng.uniform(size=nk) > 0.1
+    q_mask = rng.uniform(size=nq) > 0.05
+    db[~db_mask] = np.nan
+    return tuple(torch.from_numpy(x).to(device) for x in (q, q_mask, db, db_mask)), pick
+
+
+def compare_matchers(device, table, backend: str = "cuda", nq: int = 1024, nk: int = 1 << 20,
+                     reps: int = 10):
+    """K7: exact and fast against the plain version at map scale."""
+    import torch
+
+    from visual_odometry_tpu_torch.ops.kernels import matcher_kernel
+
+    args, pick = match_problem(nq, nk, device)
+    q, q_mask, db, db_mask = args
+    d = q.shape[1]
+    moved = nbytes(q, q_mask, db, db_mask) + nq * 8
+    for fast, name in ((False, "best_match"), (True, "best_match_fast")):
+        dist, idx = matcher_kernel.best_match(*args, backend=backend, fast=fast)
+        (dist_p, idx_p), plain_ms = timed_call(
+            lambda: matcher_kernel.best_match_plain(*args, fast=fast), device)
+        require(torch.equal(idx, idx_p), f"K7 {name}: indices differ from the plain version")
+        live = q_mask & (dist_p < 1e38)
+        err = float((dist - dist_p)[live].abs().max())
+        require(torch.equal(dist, dist_p), f"K7 {name}: distances differ by {err}")
+        require(bool(db_mask[idx[q_mask].long()].all()), f"K7 {name}: a masked row won")
+        require(bool((dist[~q_mask] > 1e38).all()), f"K7 {name}: a masked query got a distance")
+        own = torch.from_numpy(pick).to(device)
+        want = q_mask & db_mask[own]
+        require(bool((idx[want] == own[want]).all()), f"K7 {name}: a query missed its own row")
+        if fast:   # the bfloat16 gram at the tensor cores' rate, the selection in float32
+            t_ops = 1e3 * (nq * nk * 2 * d / PEAK_BF16 + nq * nk * 3 / PEAK_FP32)
+            bound_ms, bound_by = max((1e3 * moved / PEAK_BYTES_S, "bytes"), (t_ops, "operations"))
+        else:
+            bound_ms, bound_by = bound(moved, nq * nk * (2 * d + 3))
+        table[name] = dict(
+            max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            ms=time_ms(lambda: matcher_kernel.best_match(*args, backend=backend, fast=fast),
+                       device, reps),
+            # No single PyTorch call computes a top-1 over K = 2^20 rows without the
+            # (Q, K) distance matrix in device memory.
+            library_ms=None)
+
+
+def read_launches(names, label: str, must: bool = True):
+    from visual_odometry_tpu_torch.ops.kernels import _lib
+
     launches = dict(_lib.launches)
-    res = apps.run_evaluation(data, out, verbose=True)
-    finite = np.isfinite(res.orientation_errors)
-    e_theta = float(np.abs(res.orientation_errors[finite]).mean())
-    print(json.dumps({"path_a": {"e_theta_mean": e_theta, "rmse_position": res.rmse_position,
-                                 "rmse_map": res.rmse_map, "n_map_matched": res.n_map_matched,
-                                 "launches": launches}}))
-    require(e_theta < 1e-4, f"path A: mean |e_theta| {e_theta} >= 1e-4")
-    require(res.rmse_position < 0.2, f"path A: rmse_position {res.rmse_position} >= 0.2")
-    require(res.n_map_matched > 100, f"path A: only {res.n_map_matched} map landmarks matched")
-    if require_launches:
-        require(all(n > 0 for n in launches.values()), f"path A: a kernel never ran: {launches}")
+    if must:
+        require(all(launches[n] > 0 for n in names), f"{label}: a kernel never ran: {launches}")
     return launches
 
 
-def run_path_b(camera, config, pts, apps, masks, device, require_launches: bool, reps: int = 3):
+def check_accuracy(res, label: str):
+    finite = np.isfinite(res.orientation_errors)
+    e_theta = float(np.abs(res.orientation_errors[finite]).mean())
+    require(e_theta < 1e-4, f"{label}: mean |e_theta| {e_theta} >= 1e-4")
+    require(res.rmse_position < 0.2, f"{label}: rmse_position {res.rmse_position} >= 0.2")
+    require(res.n_map_matched > 100, f"{label}: only {res.n_map_matched} map landmarks matched")
+    return {"e_theta_mean": e_theta, "rmse_position": res.rmse_position,
+            "rmse_map": res.rmse_map, "n_map_matched": res.n_map_matched}
+
+
+def run_path_a(work_dir: str, device, require_launches: bool = True):
+    """The reference-format applications on a generated dataset."""
+    import torch
+
+    from visual_odometry_tpu_torch import apps
+    from visual_odometry_tpu_torch.ops import se3
+    from visual_odometry_tpu_torch.ops.kernels import _lib
+    from visual_odometry_tpu_torch.utils import dataset_gen, io
+    from visual_odometry_tpu_torch.utils.config import DEFAULT_CONFIG
+
+    data = os.path.join(work_dir, "data")
+    outs = {n: os.path.join(work_dir, n) for n in ("complete", "se2", "daknown", "reloc")}
+    dataset_gen.generate_dataset(data, num_frames=40, num_landmarks=400, seed=1)
+    report = {}
+    _lib.reset_launches()
+    apps.run_vo_complete(data, outs["complete"], device=device, verbose=True)
+    sync(device)
+    read_launches(MAIN_PATH, "path A vo_complete", require_launches)
+    report["vo_complete"] = check_accuracy(apps.run_evaluation(data, outs["complete"]), "path A")
+
+    traj_se2 = apps.run_vo_se2(data, outs["se2"], device=device, verbose=True)[0]
+    report["vo_se2"] = check_accuracy(apps.run_evaluation(data, outs["se2"]), "path A vo_se2")
+    mount = torch.from_numpy(io.load_camera_params(os.path.join(data, "camera.dat")).cam_in_robot)
+    dev_se2 = se3.planar_deviation(torch.from_numpy(traj_se2), mount)
+    report["vo_se2"]["planar_subgroup_dev"] = dev_se2
+    require(dev_se2 < PLANAR_DEV_TOL, f"path A vo_se2: planar deviation {dev_se2}")
+
+    traj_known = apps.run_vo_da_known(data, outs["daknown"], device=device, verbose=True)[0]
+    require(bool(np.isfinite(traj_known).all()), "path A vo_daknown: non-finite poses")
+    require(os.path.getsize(os.path.join(outs["daknown"], "time_known.txt")) > 0,
+            "path A vo_daknown: time_known.txt is empty")
+
+    for precision in ("highest", "fast"):
+        rows = apps.run_relocalize(data, outs["reloc"], every=10, device=device,
+                                   config=DEFAULT_CONFIG.replace(matcher_precision=precision))
+        require(len(rows) == 3, f"path A relocalize: {len(rows)} rows")
+        for f, err_t, err_r, n_matches, n_inliers in rows:   # tests/test_relocalize.py:91-92
+            require(err_t < 0.05 and err_r < 1e-3,
+                    f"path A relocalize ({precision}) frame {f}: {err_t}, {err_r}")
+        report["relocalize_" + precision] = [list(r) for r in rows]
+    sync(device)
+    launches = read_launches([k for k in KERNELS if k != "picp_solve_se2"], "path A",
+                             require_launches)
+    report["launches"] = launches
+    print(json.dumps({"path_a": report}))
+    return launches
+
+
+def run_path_b(camera, config, pts, apps, masks, device, require_launches: bool = True,
+               reps: int = 3):
     """Full-width tracking through the kernels, held against the plain versions."""
     import torch
 
@@ -241,9 +539,7 @@ def run_path_b(camera, config, pts, apps, masks, device, require_launches: bool,
     _lib.reset_launches()
     traj, map_state, outs = pipeline.run_sequence(camera, config, pts, apps, masks)
     sync(device)
-    launches = dict(_lib.launches)
-    if require_launches:
-        require(all(n > 0 for n in launches.values()), f"path B: a kernel never ran: {launches}")
+    launches = read_launches(MAIN_PATH, "path B", require_launches)
     require(bool(torch.isfinite(traj).all()), "path B: non-finite poses")
     plain = config.replace(matcher_backend="torch", scan_backend="torch")
     traj_p, map_p, _ = pipeline.run_sequence(camera, plain, pts, apps, masks)
@@ -266,6 +562,287 @@ def run_path_b(camera, config, pts, apps, masks, device, require_launches: bool,
                                  "seconds": seconds, "launches": launches}}))
     print(f"path B frames/s: {fps:.1f} ({frames} frames x {pts.shape[1]} slots, median of {reps})")
     return launches, err, fps
+
+
+def path_c_inputs(device, map_rows: int, queries: int):
+    """The relocalization workload of benchmarks/bench_reloc.py:43-69: a map of
+    ``map_rows`` landmarks, one frame of ``queries`` drawn from it and projected
+    through the default camera, identity prior. Returns (camera, map, frame,
+    prior, each query's own map row)."""
+    import torch
+
+    from visual_odometry_tpu_torch.models import pipeline
+    from visual_odometry_tpu_torch.models.landmark_map import LandmarkMap
+    from visual_odometry_tpu_torch.ops.camera import project_points
+    from visual_odometry_tpu_torch.utils import synthetic
+
+    rng = np.random.default_rng(0)
+    world = np.stack([rng.uniform(-2.5, 2.5, map_rows), rng.uniform(-2.0, 2.0, map_rows),
+                      rng.uniform(2.0, 6.0, map_rows)], axis=1).astype(np.float32)
+    keys = rng.uniform(-1.0, 1.0, (map_rows, 10)).astype(np.float32)
+    own = torch.from_numpy(rng.integers(0, map_rows, queries)).to(device)
+    map_state = LandmarkMap(
+        points=torch.from_numpy(world).to(device), appearances=torch.from_numpy(keys).to(device),
+        valid=torch.ones(map_rows, dtype=torch.bool, device=device),
+        count=torch.tensor(map_rows, dtype=torch.int32, device=device))
+    camera = synthetic.default_camera(device=device)
+    uv, valid = project_points(camera, map_state.points[own])
+    frame = pipeline.FrameData(uv, map_state.appearances[own].contiguous(), valid,
+                               torch.full((queries,), -1, dtype=torch.int32, device=device))
+    return camera, map_state, frame, torch.eye(4, device=device), own
+
+
+def run_path_c(device, map_rows: int = 1 << 20, queries: int = 1024,
+               require_launches: bool = True, reps: int = 3):
+    """Map-scale relocalization (the workload of benchmarks/bench_reloc.py):
+    one frame of queries drawn from the map and projected through the default
+    camera, identity prior, both matcher precisions; then the standalone planar
+    solve at N = 8 x queries through its public entry point."""
+    import torch
+
+    from visual_odometry_tpu_torch.models import pipeline
+    from visual_odometry_tpu_torch.ops import matching
+    from visual_odometry_tpu_torch.ops.kernels import _lib, picp_kernel
+    from visual_odometry_tpu_torch.utils.config import VOConfig
+
+    camera, map_state, frame, x0, own = path_c_inputs(device, map_rows, queries)
+    valid = frame.mask
+
+    def config(precision):
+        return VOConfig(n_slots=queries, map_capacity=map_rows, gn_iterations=30,
+                        matcher_precision=precision)
+
+    report, launches = {}, {}
+    for precision in ("highest", "fast"):
+        _lib.reset_launches()
+        pose, stats, n_matches = pipeline.relocalize_frame(camera, config(precision), map_state,
+                                                           frame, x0)
+        sync(device)
+        key = "best_match_fast" if precision == "fast" else "best_match"
+        ran = dict(_lib.launches)
+        if require_launches:
+            require(ran[key] == 1 and ran["picp_solve"] == 1,
+                    f"path C ({precision}): K7 and K6 must launch once each: {ran}")
+        launches[key] = ran[key]
+        launches["picp_solve"] = launches.get("picp_solve", 0) + ran["picp_solve"]
+        _, idx = matching.best_match(frame.appearances, frame.mask, map_state.appearances,
+                                     map_state.valid, precision=precision)
+        require(bool((idx[valid] == own[valid]).all()),
+                f"path C ({precision}): a query missed its own map row")
+        require(int(n_matches) == int(valid.sum()), f"path C ({precision}): match count")
+        err = float((pose - x0).abs().max())
+        require(bool(torch.isfinite(pose).all()) and err < 1e-3,
+                f"path C ({precision}): pose is {err} from identity")
+        seconds = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            pipeline.relocalize_frame(camera, config(precision), map_state, frame, x0)
+            sync(device)
+            seconds.append(time.perf_counter() - t0)
+        report[precision] = {"pose_err": err, "matches": int(n_matches),
+                             "inliers": int(stats.num_inliers), "seconds": seconds,
+                             "queries_per_s": queries / statistics.median(seconds)}
+
+    # The planar standalone solve has no caller in the pipeline (as in the JAX
+    # package): it is driven here through its public entry point.
+    args, gt = solve_problem(8 * queries, True, device, seed=1)
+    _lib.reset_launches()
+    pose, stats = picp_kernel.solve_se2_fused(*args)
+    sync(device)
+    launches["picp_solve_se2"] = _lib.launches["picp_solve_se2"]
+    if require_launches:
+        require(launches["picp_solve_se2"] == 1, "path C: the planar solve did not launch")
+    err = float((pose.cpu() - gt).abs().max())
+    require(err < 5e-3, f"path C planar solve: {err} from the ground-truth pose")
+    report["solve_se2"] = {"n": 8 * queries, "pose_err": err, "inliers": int(stats.num_inliers)}
+    launches = {k: launches.get(k, 0) for k in KERNELS}
+    report["launches"] = launches
+    print(json.dumps({"path_c": report}))
+    for precision in ("highest", "fast"):
+        print(f"path C queries/s ({precision}): {report[precision]['queries_per_s']:.0f} "
+              f"({queries} queries x {map_rows} map rows, median of {reps})")
+    return launches
+
+
+def run_path_d(camera, planar, pts, apps, masks, device, require_launches: bool = True,
+               reps: int = 3):
+    """The planar estimation group at full width (path_d_inputs), kernels only."""
+    import torch
+
+    from visual_odometry_tpu_torch.models import pipeline
+    from visual_odometry_tpu_torch.ops import se3
+    from visual_odometry_tpu_torch.ops.kernels import _lib
+
+    mount = torch.from_numpy(planar.planar_mount())
+    _lib.reset_launches()
+    traj, map_state, outs = pipeline.run_sequence(camera, planar, pts, apps, masks)
+    sync(device)
+    launches = read_launches(("match_pairs", "join_candidates", "gather_rows",
+                              "track_frames_planar"), "path D", require_launches)
+    if require_launches:
+        require(launches["track_frames_planar"] == 1 and launches["track_frames"] == 0,
+                f"path D: K5 must launch once and K4 not at all: {launches}")
+    require(bool(torch.isfinite(traj).all()), "path D: non-finite poses")
+    dev = se3.planar_deviation(traj.cpu(), mount)
+    require(dev < PLANAR_DEV_TOL, f"path D: planar-subgroup deviation {dev}")
+    seconds = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        pipeline.run_sequence(camera, planar, pts, apps, masks)
+        sync(device)
+        seconds.append(time.perf_counter() - t0)
+    frames = pts.shape[0]
+    print(json.dumps({"path_d": {"frames": frames, "slots": pts.shape[1],
+                                 "planar_subgroup_dev": dev,
+                                 "map_landmarks": int(map_state.count),
+                                 "inliers_mean": float(outs.num_inliers.float().mean()),
+                                 "seconds": seconds, "launches": launches}}))
+    print(f"path D frames/s: {frames / statistics.median(seconds):.1f} "
+          f"({frames} frames x {pts.shape[1]} slots, planar, median of {reps})")
+    return launches
+
+
+def run_resume(camera, config, pts, apps, masks, device, work_dir: str, split: int = 256,
+               require_launches: bool = True):
+    """initialize on frames 0/1, then continue_sequence once over the rest
+    against twice over two halves with a checkpoint round trip between them
+    (tests/test_checkpoint.py:80-131)."""
+    import torch
+
+    from visual_odometry_tpu_torch.models import pipeline
+    from visual_odometry_tpu_torch.ops.kernels import _lib
+    from visual_odometry_tpu_torch.utils import checkpoint
+
+    ids = torch.full(masks.shape, -1, dtype=torch.int32, device=masks.device)
+    f0 = pipeline.FrameData(pts[0], apps[0], masks[0], ids[0])
+    f1 = pipeline.FrameData(pts[1], apps[1], masks[1], ids[1])
+    state0, x_init = pipeline.initialize(camera, config, f0, f1)
+
+    def cont(state, lo, hi):
+        return pipeline.continue_sequence(camera, config, state, pts[lo:hi], apps[lo:hi],
+                                          masks[lo:hi], ids[lo:hi])
+
+    _lib.reset_launches()
+    full_state, full = cont(state0, 2, None)
+    state_a, out_a = cont(state0, 2, split)
+    os.makedirs(work_dir, exist_ok=True)
+    path = os.path.join(work_dir, "state.npz")
+    traj_a = torch.cat([torch.eye(4, device=device)[None], x_init[None], out_a.pose])
+    checkpoint.save_state(path, state_a, traj_a.cpu().numpy())
+    state_l, traj_l = checkpoint.load_state(path, device=device)
+    require(np.array_equal(traj_l, traj_a.cpu().numpy()), "resume: the trajectory changed on disk")
+    state_b, out_b = cont(state_l, split, None)
+    sync(device)
+    launches = read_launches(MAIN_PATH, "resume", require_launches)
+
+    pose_err = float((full.pose - torch.cat([out_a.pose, out_b.pose])).abs().max())
+    require(pose_err <= K4_POSE_TOL, f"resume: split and one-shot poses differ by {pose_err}")
+    require(torch.equal(full_state.map.valid, state_b.map.valid)
+            and torch.equal(full_state.map.appearances, state_b.map.appearances),
+            "resume: map layouts differ")
+    require(torch.equal(full_state.point_lookup, state_b.point_lookup),
+            "resume: carried lookups differ")
+    map_err = float((full_state.map.points - state_b.map.points).abs().max())
+    require(map_err <= 1e-4, f"resume: map positions differ by {map_err}")   # test_checkpoint.py:118
+    print(json.dumps({"resume": {"split": split, "pose_max_abs_err": pose_err,
+                                 "map_pos_max_abs_err": map_err,
+                                 "map_landmarks": int(state_b.map.count), "launches": launches}}))
+    return launches
+
+
+def run_step_form(camera, config, pts, apps, masks, device, frames: int = 18,
+                  require_launches: bool = True):
+    """``scan_backend="step"`` at full width over the head of path B's inputs:
+    the frame_step loop solves each tracked frame through one K6 launch and is
+    held against the fused K4 launch on the same frames."""
+    from visual_odometry_tpu_torch.models import pipeline
+    from visual_odometry_tpu_torch.ops.kernels import _lib
+
+    head = (pts[:frames], apps[:frames], masks[:frames])
+    traj_f, map_f, _ = pipeline.run_sequence(camera, config, *head)
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    traj_s, map_s, _ = pipeline.run_sequence(camera, config.replace(scan_backend="step"), *head)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = dict(_lib.launches)
+    if require_launches:
+        require(launches["picp_solve"] == frames - 2 and launches["track_frames"] == 0,
+                f"step form: K6 must launch once a tracked frame and K4 not at all: {launches}")
+    err = float((traj_s - traj_f).abs().max())
+    require(err <= K4_POSE_TOL, f"step form: step and fused trajectories differ by {err}")
+    require(int(map_s.count) == int(map_f.count), "step form: map sizes differ")
+    print(json.dumps({"step_form": {"frames": frames, "slots": pts.shape[1],
+                                    "traj_max_abs_err_vs_fused": err, "seconds": seconds,
+                                    "launches": launches}}))
+    return launches
+
+
+def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1 << 20,
+                 reps: int = 5) -> dict:
+    """Stage times of run_sequence on path B's and path D's inputs and of
+    relocalize_frame on path C's: the entry points themselves, run inside
+    ``profiling.stage_times`` so that each step the pipeline wraps in
+    ``profiling.stage`` is sampled on the host clock and ended by a sync (ms,
+    median of ``reps`` after one warm-up). Then one more call of each under
+    torch.profiler gives the time of each of the port's kernels and the
+    device-busy share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from visual_odometry_tpu_torch.models import pipeline
+    from visual_odometry_tpu_torch.utils import profiling, synthetic
+    from visual_odometry_tpu_torch.utils.config import VOConfig
+
+    own = ("match_pairs", "join_candidates", "gather_rows", "track_frames", "picp_solve",
+           "best_match_scan", "best_match_fold")   # csrc/*.cu name their kernels <this>_kernel
+
+    def measured(fn):
+        with profiling.stage_times() as timer:
+            for _ in range(reps + 1):
+                fn()
+        out = {"stages_ms": {k: 1e3 * statistics.median(v[1:])
+                             for k, v in timer.samples.items()}}
+        require(out["stages_ms"], "stages: the entry point ran no profiling.stage block")
+        sync(device)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            sync(device)
+            wall = time.perf_counter() - t0
+        # Device events only, the vo/ ranges' own device-side spans left out.
+        on_card = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and not e.name.startswith("vo/")]
+        busy_us = sum(e.time_range.elapsed_us() for e in on_card)
+        require(busy_us > 0, "stages: the profiler saw no device time")
+        kernels = {}
+        for e in on_card:
+            for k in own:
+                if k + "_kernel" in e.name:
+                    row = kernels.setdefault(k, {"device_ms": 0.0, "launches": 0})
+                    row["device_ms"] += e.time_range.elapsed_us() / 1e3
+                    row["launches"] += 1
+        out.update(kernels=kernels, device_busy_ms=busy_us / 1e3, wall_ms=1e3 * wall,
+                   busy_share=busy_us / 1e6 / wall)
+        return out
+
+    camera = synthetic.deep_camera(device=device)
+    config = VOConfig(n_slots=slots, map_capacity=2 * slots)
+    planar = config.with_planar_mount(mount_matrix("cpu").numpy())
+    seq_b, seq_d = path_b_inputs(frames, slots, device), path_d_inputs(frames, slots, device)
+    report = {"path_b": measured(lambda: pipeline.run_sequence(camera, config, *seq_b)),
+              "path_d": measured(lambda: pipeline.run_sequence(camera, planar, *seq_d))}
+    # The frame_step loop over the head of path B: one K6 launch a tracked frame.
+    step = config.replace(scan_backend="step")
+    head = tuple(x[:34] for x in seq_b)
+    report["path_b_step_34_frames"] = measured(lambda: pipeline.run_sequence(camera, step, *head))
+    camera, map_state, frame, x0, _ = path_c_inputs(device, map_rows, slots)
+    for precision in ("highest", "fast"):
+        cfg = VOConfig(n_slots=slots, map_capacity=map_rows, gn_iterations=30,
+                       matcher_precision=precision)
+        report["path_c_" + precision] = measured(
+            lambda: pipeline.relocalize_frame(camera, cfg, map_state, frame, x0))
+    return report
 
 
 def nvidia_smi_line() -> str:
@@ -291,6 +868,15 @@ def main() -> int:
     from visual_odometry_tpu_torch.utils.config import VOConfig
 
     device = torch.device("cuda")
+    if sys.argv[1:] == ["--stages"]:
+        print(nvidia_smi_line())
+        print(json.dumps({"stages": stage_report(device)}))
+        return 0
+    t_start = time.perf_counter()
+
+    def phase(label: str, t0: float) -> None:
+        print(f"[{label}: {time.perf_counter() - t0:.1f} s]")
+
     # ---- 1. environment ----
     smi = nvidia_smi_line()
     nvcc = subprocess.run([_lib._nvcc(), "--version"], stdout=subprocess.PIPE, text=True)
@@ -312,6 +898,7 @@ def main() -> int:
     config = VOConfig(n_slots=slots, map_capacity=2 * slots)
     camera = synthetic.deep_camera(device=device)
     pts, apps, masks = path_b_inputs(frames, slots, device)
+    t0 = time.perf_counter()
     inputs = kernel_inputs(camera, config, pts, apps, masks)
     kernel_fns = {
         "match_pairs": matcher_kernel.match_pairs_cuda,
@@ -319,28 +906,54 @@ def main() -> int:
         "gather_rows": gather_kernel.gather_rows_cuda,
         "track_frames": frame_kernel.track_frames_cuda,
     }
-    t0 = time.perf_counter()
     table = compare_kernels(inputs, device, kernel_fns)
-    print(f"kernels vs plain versions: all agree ({time.perf_counter() - t0:.1f} s)")
+    planar_config = config.with_planar_mount(mount_matrix("cpu").numpy())
+    planar_seq = path_d_inputs(frames, slots, device)
+    inputs = kernel_inputs(camera, planar_config, *planar_seq)
+    compare_frame_kernel("track_frames_planar", inputs["track_frames"], K5_PLAIN_FRAMES, device,
+                         table, kernel_fns["track_frames"])
     del inputs
+    compare_solves(device, table)
+    compare_matchers(device, table)
+    torch.cuda.empty_cache()
+    print("kernels vs plain versions: all agree")
+    phase("kernel phase", t0)
 
-    # ---- 4. path A: reference-format application ----
-    work = os.path.join(ROOT, "build", "chip_smoke_path_a")
+    # ---- 4-9. the paths ----
+    work = os.path.join(ROOT, "build", "chip_smoke_work")
     shutil.rmtree(work, ignore_errors=True)
+    launches = {}
     try:
-        launches_a = run_path_a(work, device, require_launches=True)
+        t0 = time.perf_counter()
+        launches["A"] = run_path_a(work, device)
+        phase("path A", t0)
+        t0 = time.perf_counter()
+        launches["B"], _, _ = run_path_b(camera, config, pts, apps, masks, device)
+        phase("path B", t0)
+        t0 = time.perf_counter()
+        launches["C"] = run_path_c(device)
+        phase("path C", t0)
+        t0 = time.perf_counter()
+        launches["D"] = run_path_d(camera, planar_config, *planar_seq, device)
+        phase("path D", t0)
+        t0 = time.perf_counter()
+        launches["resume"] = run_resume(camera, config, pts, apps, masks, device, work)
+        phase("resume", t0)
+        t0 = time.perf_counter()
+        launches["step"] = run_step_form(camera, config, pts, apps, masks, device)
+        phase("step form", t0)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 5. path B: full width ----
-    launches_b, _, _ = run_path_b(camera, config, pts, apps, masks, device, require_launches=True)
-
     rows = []
-    for name, (source, replaces) in KERNELS.items():
-        err, ms, plain_ms = table[name]
-        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": launches_b[name], "launches_path_a": launches_a[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    for name, (source, replaces, home) in KERNELS.items():
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": launches[home][name], "launches_path": home,
+               "launches_by_path": {p: launches[p][name] for p in launches}}
+        row.update(table[name])
+        require(row["launches"] > 0, f"{name} never launched on path {home}")
+        rows.append(row)
+    print(f"[total: {time.perf_counter() - t_start:.1f} s]")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

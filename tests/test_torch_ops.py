@@ -149,10 +149,20 @@ def test_config_mirrors_jax_fields_and_defaults():
     assert set(j.__dataclass_fields__) == set(VOConfig.__dataclass_fields__)
     with pytest.raises(ValueError):
         VOConfig(scan_backend="fused")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VOConfig(planar=True).check_supported()
+    VOConfig(planar=True).check_supported()   # est_SE2 runs (kernel K5)
+    assert VOConfig(scan_backend="step").scan_backend == "step"
+    with pytest.raises(ValueError):
+        VOConfig(matcher_precision="bf16")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         VOConfig(num_chunks=4).check_supported()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        VOConfig(refine_iterations=1).check_supported()
+    mount = np.eye(4, dtype=np.float32)
+    mount[0, 3] = 0.25
+    planar = VOConfig().with_planar_mount(mount)
+    assert planar.planar and hash(planar) is not None
+    np.testing.assert_array_equal(planar.planar_mount(), JaxConfig().with_planar_mount(
+        mount).planar_mount())
 
 
 def test_convert_config_and_state():
@@ -164,6 +174,16 @@ def test_convert_config_and_state():
     assert (cfg.n_slots, cfg.scan_backend, cfg.matcher_backend) == (256, "torch", "cuda")
     with pytest.raises(ValueError):
         convert.config_from_dict({"no_such_field": 1})
+    # JAX's "xla" scan is the frame_step loop; a planar config carries its mount.
+    mount = np.eye(4, dtype=np.float32)
+    mount[1, 3] = -0.5
+    planar = convert.config_from_dict(dataclasses.asdict(
+        JaxConfig(scan_backend="xla", solver_backend="pallas").with_planar_mount(mount)))
+    assert (planar.scan_backend, planar.solver_backend, planar.planar) == ("step", "cuda", True)
+    np.testing.assert_array_equal(planar.planar_mount(), mount)
+    stats = convert.picp_stats_from_arrays(np.float32(1.5), np.float32(0.25), np.int32(7))
+    assert stats.num_inliers.dtype == torch.int32 and int(stats.num_inliers) == 7
+    assert float(stats.chi_inliers) == 1.5 and float(stats.chi_outliers) == 0.25
     cam = convert.camera_from_arrays(np.eye(3), 480, 640, 0, 5)
     assert cam.rows.dtype == torch.float32 and float(cam.cols) == 640.0
     m = convert.landmark_map_from_arrays(np.zeros((4, 3)), np.ones((4, 10)), [1, 1, 0, 0])

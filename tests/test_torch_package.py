@@ -75,3 +75,54 @@ def test_precision_is_pinned_to_float32():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_kernel_library_lists_every_source_and_symbol():
+    """Every CUDA source under csrc/ is built, every bound symbol is exported
+    by one of them, and every kernel that counts launches names a bound symbol."""
+    from visual_odometry_tpu_torch.ops.kernels import _lib
+
+    on_disk = sorted(f for f in os.listdir(_lib.CSRC))
+    assert sorted(_lib.SOURCES + _lib.HEADERS) == on_disk
+    text = "".join(open(os.path.join(_lib.CSRC, f)).read() for f in _lib.SOURCES)
+    for symbol in _lib._SIGNATURES:
+        assert re.search(r"VO_EXPORT int " + symbol + r"\(", text), symbol
+    for kernel in _lib.launches:
+        base = kernel.removesuffix("_fast")
+        assert "vo_" + base in _lib._SIGNATURES, kernel
+    mods = set(_modules())
+    for new in ("ops.picp", "ops.picp_se2", "ops.linalg6", "ops.stats", "ops.kernels.picp_kernel",
+                "utils.checkpoint", "utils.timing", "utils.profiling"):
+        assert "visual_odometry_tpu_torch." + new in mods
+
+
+def test_stage_times_samples_the_entry_points_own_steps():
+    """``profiling.stage_times`` collects one sample a call for each step the
+    pipeline marks with ``profiling.stage``, for run_sequence in the fused and
+    the frame_step form and for relocalize_frame, and nothing outside it."""
+    import numpy as np
+
+    from visual_odometry_tpu_torch.models import pipeline
+    from visual_odometry_tpu_torch.utils import profiling, synthetic
+    from visual_odometry_tpu_torch.utils.config import VOConfig
+
+    pts, apps, masks = (torch.from_numpy(x) for x in
+                        synthetic.generate_tracking_sequence(np.random.default_rng(0), 8, 64))
+    camera, cfg = synthetic.deep_camera(), VOConfig(n_slots=64, map_capacity=128)
+    with profiling.stage_times() as timer:
+        traj, map_state, _ = pipeline.run_sequence(camera, cfg, pts, apps, masks)
+        pipeline.run_sequence(camera, cfg.replace(scan_backend="step"), pts, apps, masks)
+        frame = pipeline.FrameData(pts[3], apps[3], masks[3],
+                                   torch.full((64,), -1, dtype=torch.int32))
+        pipeline.relocalize_frame(camera, cfg, map_state, frame, torch.eye(4))
+    counts = {k: len(v) for k, v in timer.samples.items()}
+    assert counts == {
+        "bootstrap_match": 2, "bootstrap_init": 2, "batched_match": 2, "join_chains": 1,
+        "pixel_gathers": 1, "frame_loop": 1, "appearance_gathers": 1, "frame_step_loop": 1,
+        "chains_and_transform": 2, "map_fold": 2, "overflow_check": 2,
+        "map_match": 1, "radius_and_gather": 1, "solve": 1,
+    }
+    assert all(x >= 0.0 for v in timer.samples.values() for x in v)
+    pipeline.run_sequence(camera, cfg, pts, apps, masks)      # outside: no new sample
+    assert {k: len(v) for k, v in timer.samples.items()} == counts
+    assert bool(torch.isfinite(traj).all())

@@ -120,10 +120,11 @@ def test_check_bootstrap_raises_below_eight_matches():
     f = tpipe.FrameData(pts, apps, mask, ids)
     with pytest.raises(tpipe.BootstrapError):
         tpipe.check_bootstrap(VOConfig(n_slots=S), f, f)
-    with pytest.raises(NotImplementedError):
-        tpipe.run_sequence(tsyn.default_camera(), VOConfig(n_slots=S, planar=True),
-                           pts[None].expand(3, S, 2), apps[None].expand(3, S, 10),
-                           mask[None].expand(3, S))
+    for unported in (dict(num_chunks=2), dict(refine_iterations=5)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tpipe.run_sequence(tsyn.default_camera(), VOConfig(n_slots=S, **unported),
+                               pts[None].expand(3, S, 2), apps[None].expand(3, S, 10),
+                               mask[None].expand(3, S))
 
 
 def _relative(poses):

@@ -1,0 +1,372 @@
+// The Gauss-Newton projective-ICP loop as device functions, shared by the
+// fused frame kernels (track_frames.cu: K4 SE(3), K5 planar) and the
+// standalone solves (picp_solve.cu: K6).
+//
+// Replaces visual_odometry_tpu/ops/pallas/picp_kernel.py:gn_loop (SE(3)) and
+// gn_loop_se2 (the planar twin: increments d = (dx, dy, dtheta) act on the
+// world-in-camera pose conjugated through the camera mount c,
+// X <- c^-1 T(d) c X, so the relative robot motion stays in SE(2)).
+//
+// One round = every thread's lane terms (30 for SE(3): 21 of H's upper
+// triangle, 6 of b, 3 stats; 12 for planar: 6 + 3 + 3), a block-wide sum,
+// and one damped, Jacobi-scaled solve plus pose update on thread 0. The
+// block sum has one fixed order, which the plain PyTorch versions repeat
+// (ops/kernels/frame_kernel._block_sum): a shuffle-down tree inside each
+// warp (offsets 16, 8, 4, 2, 1), then the warps' partials added in warp
+// order. A thread that owns several points (K6 with N > blockDim.x) adds
+// them first, in ascending point order.
+//
+// The expressions keep the TPU kernel's operation order term by term and the
+// library is built with --fmad=false, so kernel and plain version round
+// alike. The callers' lane functors supply the per-thread terms; everything
+// that touches shared memory is here.
+#pragma once
+
+#include "common.cuh"
+
+#define GN_NRED_SE3 30
+#define GN_NRED_SE2 12
+#define GN_MAX_WARPS 32
+
+struct GNControl {
+  int it;
+  float active, chi_in, chi_out, n_in;
+};
+
+// Knobs and camera of one solve; k points at the 9 row-major intrinsics.
+// mount / mount_inv ([R|t], 12 floats each) are read by the planar loop only.
+struct GNParams {
+  float z_near, z_far, cols, rows, kt, keep_out, damping, tol, min_inl;
+  const float* k;
+  const float* mount;
+  const float* mount_inv;
+};
+
+// The loop's shared-memory state. pose is the working [R|t] (3x4 row-major),
+// published by thread 0 after every round.
+struct GNShared {
+  float pose[12];
+  float red[GN_MAX_WARPS * GN_NRED_SE3];
+  float sums[GN_NRED_SE3];
+  GNControl ctl;
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ inline void inv3(const float* m, float* out) {
+  const float a = m[0], b = m[1], c = m[2], d = m[3], e = m[4], f = m[5], g = m[6], h = m[7],
+              i = m[8];
+  const float A = e * i - f * h, B = c * h - b * i, C = b * f - c * e;
+  const float D = f * g - d * i, E = a * i - c * g, F = c * d - a * f;
+  const float G = d * h - e * g, H = b * g - a * h, I = a * e - b * d;
+  const float det = a * A + b * D + c * G;
+  const float inv_det = 1.0f / det;
+  out[0] = A * inv_det; out[1] = B * inv_det; out[2] = C * inv_det;
+  out[3] = D * inv_det; out[4] = E * inv_det; out[5] = F * inv_det;
+  out[6] = G * inv_det; out[7] = H * inv_det; out[8] = I * inv_det;
+}
+
+__device__ inline void mat3mul(const float* m, const float* n, float* out) {
+  for (int r = 0; r < 3; ++r)
+    for (int c = 0; c < 3; ++c)
+      out[3 * r + c] = m[3 * r] * n[c] + m[3 * r + 1] * n[3 + c] + m[3 * r + 2] * n[6 + c];
+}
+
+__device__ inline void mat3vec(const float* m, const float* v, float* out) {
+  for (int r = 0; r < 3; ++r) out[r] = m[3 * r] * v[0] + m[3 * r + 1] * v[1] + m[3 * r + 2] * v[2];
+}
+
+__device__ inline void transpose3(const float* m, float* out) {
+  out[0] = m[0]; out[1] = m[3]; out[2] = m[6];
+  out[3] = m[1]; out[4] = m[4]; out[5] = m[7];
+  out[6] = m[2]; out[7] = m[5]; out[8] = m[8];
+}
+
+// The projection, frustum test, robust kernel and A = Jp K rows of one
+// point under pose P (picp_kernel.py:293-324): shared by both groups.
+struct GNPoint {
+  float px, py, pz, ex, ey, chi, live, w, is_out_f;
+  float a00, a01, a02, a10, a11, a12;
+};
+
+__device__ __forceinline__ GNPoint gn_project(const float* P, const GNParams& g, float wx, float wy,
+                                              float wz, float mx, float my, float wgt) {
+  const float* k = g.k;
+  GNPoint o;
+  o.px = P[0] * wx + P[1] * wy + P[2] * wz + P[3];
+  o.py = P[4] * wx + P[5] * wy + P[6] * wz + P[7];
+  o.pz = P[8] * wx + P[9] * wy + P[10] * wz + P[11];
+  const float hx = k[0] * o.px + k[1] * o.py + k[2] * o.pz;
+  const float hy = k[3] * o.px + k[4] * o.py + k[5] * o.pz;
+  const float hz = k[6] * o.px + k[7] * o.py + k[8] * o.pz;
+  const float iz = 1.0f / (hz == 0.0f ? 1.0f : hz);
+  const float u = hx * iz, v = hy * iz;
+  const bool valid = (o.pz <= g.z_far) && (o.pz >= g.z_near) && (hz > 1e-6f) && (u >= 0.0f) &&
+                     (u <= g.cols - 1.0f) && (v >= 0.0f) && (v <= g.rows - 1.0f);
+  o.ex = u - mx;
+  o.ey = v - my;
+  o.chi = o.ex * o.ex + o.ey * o.ey;
+  const bool is_out = o.chi > g.kt;
+  const float lam = is_out ? sqrtf(g.kt / fmaxf(o.chi, 1e-30f)) : 1.0f;
+  o.live = wgt * (valid ? 1.0f : 0.0f);
+  o.w = o.live * (is_out ? g.keep_out : 1.0f) * lam;
+  o.is_out_f = is_out ? 1.0f : 0.0f;
+  const float iz2 = iz * iz;
+  o.a00 = k[0] * iz - k[6] * hx * iz2;
+  o.a01 = k[1] * iz - k[7] * hx * iz2;
+  o.a02 = k[2] * iz - k[8] * hx * iz2;
+  o.a10 = k[3] * iz - k[6] * hy * iz2;
+  o.a11 = k[4] * iz - k[7] * hy * iz2;
+  o.a12 = k[5] * iz - k[8] * hy * iz2;
+  return o;
+}
+
+// One point's terms of the round's sums. SE(3): 30 terms in the order H
+// upper triangle row-major, b, chi_in, chi_out, n_in. Planar: 12 terms, the
+// Jacobian columns being row0(c_R), row1(c_R) and qx*row1 - qy*row0 against
+// the shared A rows (picp_kernel.py:680-706).
+template <bool PLANAR>
+__device__ __forceinline__ void gn_point_terms(const float* P, const GNParams& g, float wx, float wy,
+                                               float wz, float mx, float my, float wgt,
+                                               float* part) {
+  const GNPoint o = gn_project(P, g, wx, wy, wz, mx, my, wgt);
+  const float inl = o.live * (1.0f - o.is_out_f);
+  constexpr int DOF = PLANAR ? 3 : 6;
+  float jx[DOF], jy[DOF];
+  if (PLANAR) {
+    const float* c = g.mount;
+    const float qx = c[0] * o.px + c[1] * o.py + c[2] * o.pz + c[3];
+    const float qy = c[4] * o.px + c[5] * o.py + c[6] * o.pz + c[7];
+    const float ctx0 = qx * c[4] - qy * c[0];
+    const float ctx1 = qx * c[5] - qy * c[1];
+    const float ctx2 = qx * c[6] - qy * c[2];
+    jx[0] = o.a00 * c[0] + o.a01 * c[1] + o.a02 * c[2];
+    jx[1] = o.a00 * c[4] + o.a01 * c[5] + o.a02 * c[6];
+    jx[2] = o.a00 * ctx0 + o.a01 * ctx1 + o.a02 * ctx2;
+    jy[0] = o.a10 * c[0] + o.a11 * c[1] + o.a12 * c[2];
+    jy[1] = o.a10 * c[4] + o.a11 * c[5] + o.a12 * c[6];
+    jy[2] = o.a10 * ctx0 + o.a11 * ctx1 + o.a12 * ctx2;
+  } else {
+    jx[0] = o.a00;
+    jx[1] = o.a01;
+    jx[2] = o.a02;
+    jx[3] = o.a01 * (-o.pz) + o.a02 * o.py;
+    jx[4] = o.a00 * o.pz + o.a02 * (-o.px);
+    jx[5] = o.a00 * (-o.py) + o.a01 * o.px;
+    jy[0] = o.a10;
+    jy[1] = o.a11;
+    jy[2] = o.a12;
+    jy[3] = o.a11 * (-o.pz) + o.a12 * o.py;
+    jy[4] = o.a10 * o.pz + o.a12 * (-o.px);
+    jy[5] = o.a10 * (-o.py) + o.a11 * o.px;
+  }
+  int q = 0;
+#pragma unroll
+  for (int a = 0; a < DOF; ++a)
+#pragma unroll
+    for (int b = a; b < DOF; ++b) part[q++] = o.w * (jx[a] * jx[b] + jy[a] * jy[b]);
+#pragma unroll
+  for (int a = 0; a < DOF; ++a) part[q++] = o.w * (jx[a] * o.ex + jy[a] * o.ey);
+  part[q++] = o.chi * inl;
+  part[q++] = o.chi * o.live * o.is_out_f;
+  part[q++] = inl;
+}
+
+// One damped GN solve + Euler-chart update (picp_kernel.py:362-424), on the
+// 30 sums. Updates pose (3x4 row-major) and ctl in place.
+__device__ inline void gn_update(const float* sums, const GNParams& g, float* pose,
+                                 GNControl* ctl) {
+  float hm[6][6];
+  int q = 0;
+  for (int i = 0; i < 6; ++i)
+    for (int j = i; j < 6; ++j) hm[i][j] = sums[q++];
+  const float* bv = sums + 21;
+  const float new_chi_in = sums[27], new_chi_out = sums[28], new_n_in = sums[29];
+
+  float sc[6];
+  for (int i = 0; i < 6; ++i) {
+    const float m = hm[i][i] + g.damping;
+    sc[i] = 1.0f / sqrtf(fmaxf(m, 1e-30f));
+  }
+  auto se = [&](int i, int j) {
+    const int lo = i < j ? i : j, hi = i < j ? j : i;
+    return hm[lo][hi] * sc[i] * sc[j];
+  };
+  const float A[9] = {1.0f, se(0, 1), se(0, 2), se(0, 1), 1.0f, se(1, 2), se(0, 2), se(1, 2), 1.0f};
+  const float B[9] = {se(0, 3), se(0, 4), se(0, 5), se(1, 3), se(1, 4),
+                      se(1, 5), se(2, 3), se(2, 4), se(2, 5)};
+  const float Dm[9] = {1.0f, se(3, 4), se(3, 5), se(3, 4), 1.0f, se(4, 5), se(3, 5), se(4, 5), 1.0f};
+  const float r1[3] = {-bv[0] * sc[0], -bv[1] * sc[1], -bv[2] * sc[2]};
+  const float r2[3] = {-bv[3] * sc[3], -bv[4] * sc[4], -bv[5] * sc[5]};
+  float Ai[9], Bt[9], AiB[9], BtAiB[9], S[9], Si[9];
+  inv3(A, Ai);
+  transpose3(B, Bt);
+  mat3mul(Ai, B, AiB);
+  mat3mul(Bt, AiB, BtAiB);
+  for (int k = 0; k < 9; ++k) S[k] = Dm[k] - BtAiB[k];
+  inv3(S, Si);
+  float Air1[3], BtAir1[3], t_r2[3], x2[3], Bx2[3], t_r1[3], x1[3];
+  mat3vec(Ai, r1, Air1);
+  mat3vec(Bt, Air1, BtAir1);
+  for (int k = 0; k < 3; ++k) t_r2[k] = r2[k] - BtAir1[k];
+  mat3vec(Si, t_r2, x2);
+  mat3vec(B, x2, Bx2);
+  for (int k = 0; k < 3; ++k) t_r1[k] = r1[k] - Bx2[k];
+  mat3vec(Ai, t_r1, x1);
+  const float y[6] = {x1[0], x1[1], x1[2], x2[0], x2[1], x2[2]};
+  const bool enough = new_n_in >= g.min_inl;
+  float dx[6];
+  for (int i = 0; i < 6; ++i) dx[i] = enough ? y[i] * sc[i] : 0.0f;
+  float dx2 = dx[0] * dx[0];
+  for (int i = 1; i < 6; ++i) dx2 = dx2 + dx[i] * dx[i];
+
+  const float sa = sinf(dx[3]), ca = cosf(dx[3]);
+  const float sb = sinf(dx[4]), cb = cosf(dx[4]);
+  const float ss = sinf(dx[5]), cc = cosf(dx[5]);
+  const float rd[9] = {cb * cc,
+                       -cb * ss,
+                       sb,
+                       ca * ss + sa * sb * cc,
+                       ca * cc - sa * sb * ss,
+                       -sa * cb,
+                       sa * ss - ca * sb * cc,
+                       sa * cc + ca * sb * ss,
+                       ca * cb};
+  const float r_old[9] = {pose[0], pose[1], pose[2], pose[4], pose[5],
+                          pose[6], pose[8], pose[9], pose[10]};
+  const float t_old[3] = {pose[3], pose[7], pose[11]};
+  float r_new[9], t_rot[3];
+  mat3mul(rd, r_old, r_new);
+  mat3vec(rd, t_old, t_rot);
+  for (int r = 0; r < 3; ++r) {
+    pose[4 * r + 0] = r_new[3 * r + 0];
+    pose[4 * r + 1] = r_new[3 * r + 1];
+    pose[4 * r + 2] = r_new[3 * r + 2];
+    pose[4 * r + 3] = t_rot[r] + dx[r];
+  }
+  ctl->it += 1;
+  ctl->active = (enough && dx2 > g.tol) ? 1.0f : 0.0f;
+  ctl->chi_in = new_chi_in;
+  ctl->chi_out = new_chi_out;
+  ctl->n_in = new_n_in;
+}
+
+// The planar twin (picp_kernel.py:719-766) on the 12 sums: a Jacobi-scaled
+// 3x3 solve through the adjugate inverse, then X <- c^-1 T(d) c X with
+// incr_R = c_inv_R (T(dtheta) c_R) and incr_t = c_inv_R (T c_t + d) + c_inv_t.
+__device__ inline void gn_update_se2(const float* sums, const GNParams& g, float* pose,
+                                     GNControl* ctl) {
+  const float h00 = sums[0], h01 = sums[1], h02 = sums[2], h11 = sums[3], h12 = sums[4],
+              h22 = sums[5];
+  const float* bv = sums + 6;
+  const float new_chi_in = sums[9], new_chi_out = sums[10], new_n_in = sums[11];
+  const float sc0 = 1.0f / sqrtf(fmaxf(h00 + g.damping, 1e-30f));
+  const float sc1 = 1.0f / sqrtf(fmaxf(h11 + g.damping, 1e-30f));
+  const float sc2 = 1.0f / sqrtf(fmaxf(h22 + g.damping, 1e-30f));
+  const float s01 = h01 * sc0 * sc1, s02 = h02 * sc0 * sc2, s12 = h12 * sc1 * sc2;
+  const float A[9] = {1.0f, s01, s02, s01, 1.0f, s12, s02, s12, 1.0f};
+  float Ai[9], y[3];
+  inv3(A, Ai);
+  const float r1[3] = {-bv[0] * sc0, -bv[1] * sc1, -bv[2] * sc2};
+  mat3vec(Ai, r1, y);
+  const bool enough = new_n_in >= g.min_inl;
+  const float dx[3] = {enough ? y[0] * sc0 : 0.0f, enough ? y[1] * sc1 : 0.0f,
+                       enough ? y[2] * sc2 : 0.0f};
+  float dx2 = dx[0] * dx[0];
+  dx2 = dx2 + dx[1] * dx[1];
+  dx2 = dx2 + dx[2] * dx[2];
+
+  const float sth = sinf(dx[2]), cth = cosf(dx[2]);
+  const float tr[9] = {cth, -sth, 0.0f * cth, sth, cth, 0.0f * cth,
+                       0.0f * cth, 0.0f * cth, 1.0f + 0.0f * cth};
+  const float* c = g.mount;
+  const float* ci = g.mount_inv;
+  const float c_r[9] = {c[0], c[1], c[2], c[4], c[5], c[6], c[8], c[9], c[10]};
+  const float ci_r[9] = {ci[0], ci[1], ci[2], ci[4], ci[5], ci[6], ci[8], ci[9], ci[10]};
+  const float c_t[3] = {c[3], c[7], c[11]};
+  float trcr[9], incr_r[9], trc[3], incr_t[3];
+  mat3mul(tr, c_r, trcr);
+  mat3mul(ci_r, trcr, incr_r);
+  mat3vec(tr, c_t, trc);
+  trc[0] = trc[0] + dx[0];
+  trc[1] = trc[1] + dx[1];
+  mat3vec(ci_r, trc, incr_t);
+  incr_t[0] = incr_t[0] + ci[3];
+  incr_t[1] = incr_t[1] + ci[7];
+  incr_t[2] = incr_t[2] + ci[11];
+
+  const float r_old[9] = {pose[0], pose[1], pose[2], pose[4], pose[5],
+                          pose[6], pose[8], pose[9], pose[10]};
+  const float t_old[3] = {pose[3], pose[7], pose[11]};
+  float r_new[9], t_rot[3];
+  mat3mul(incr_r, r_old, r_new);
+  mat3vec(incr_r, t_old, t_rot);
+  for (int r = 0; r < 3; ++r) {
+    pose[4 * r + 0] = r_new[3 * r + 0];
+    pose[4 * r + 1] = r_new[3 * r + 1];
+    pose[4 * r + 2] = r_new[3 * r + 2];
+    pose[4 * r + 3] = t_rot[r] + incr_t[r];
+  }
+  ctl->it += 1;
+  ctl->active = (enough && dx2 > g.tol) ? 1.0f : 0.0f;
+  ctl->chi_in = new_chi_in;
+  ctl->chi_out = new_chi_out;
+  ctl->n_in = new_n_in;
+}
+
+// Thread 0 sets the loop's start state; the caller's next barrier publishes it.
+__device__ __forceinline__ void gn_init(GNShared* sh, const float* pose0) {
+  for (int q = 0; q < 12; ++q) sh->pose[q] = pose0[q];
+  sh->ctl.it = 0;
+  sh->ctl.active = 1.0f;
+  sh->ctl.chi_in = 0.0f;
+  sh->ctl.chi_out = 0.0f;
+  sh->ctl.n_in = 0.0f;
+}
+
+// The GN loop with the tolerance early exit. Every thread of the block calls
+// it after a barrier that follows gn_init. lane_terms(P, part) fills this
+// thread's NRED terms under pose P (zeros for a thread without a point). On
+// return sh->pose and sh->ctl hold the result, visible to every thread. A
+// round costs two barriers.
+template <bool PLANAR, typename LaneTerms>
+__device__ __forceinline__ void gn_solve(GNShared* sh, const GNParams& g, int num_iterations,
+                                         int min_iterations, LaneTerms lane_terms) {
+  constexpr int NRED = PLANAR ? GN_NRED_SE2 : GN_NRED_SE3;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  while (true) {
+    const int it = sh->ctl.it;
+    if (!(it < num_iterations && (sh->ctl.active > 0.5f || it < min_iterations))) break;
+    float part[NRED];
+    lane_terms(sh->pose, part);
+#pragma unroll
+    for (int q = 0; q < NRED; ++q) {
+      const float v = warp_sum(part[q]);
+      if (lane == 0) sh->red[warp * NRED + q] = v;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      if (lane < NRED) {
+        float acc = sh->red[lane];
+        for (int w = 1; w < nwarps; ++w) acc += sh->red[w * NRED + lane];
+        sh->sums[lane] = acc;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        GNControl ctl = sh->ctl;
+        if (PLANAR) {
+          gn_update_se2(sh->sums, g, sh->pose, &ctl);
+        } else {
+          gn_update(sh->sums, g, sh->pose, &ctl);
+        }
+        sh->ctl = ctl;
+      }
+    }
+    __syncthreads();
+  }
+}

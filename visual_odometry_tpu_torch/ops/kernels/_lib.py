@@ -1,6 +1,6 @@
 """Build, load and launch the CUDA kernels of ``csrc/``.
 
-The four kernel sources are compiled on the machine with the card, at the
+The kernel sources are compiled on the machine with the card, at the
 first launch: one ``nvcc -c`` per source, all started together, then one
 ``nvcc -shared`` link into ``build/vo_torch_kernels/`` under the repository
 root, named by a hash of the sources and flags. A build writes into a fresh
@@ -31,8 +31,9 @@ from ...utils.config import BACKENDS
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "vo_torch_kernels"
-SOURCES = ("match_pairs.cu", "join_candidates.cu", "gather_rows.cu", "track_frames.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("match_pairs.cu", "join_candidates.cu", "gather_rows.cu", "track_frames.cu",
+           "picp_solve.cu", "best_match.cu")
+HEADERS = ("common.cuh", "gn_loop.cuh")
 # --fmad=false: no multiply-add contraction, so kernel arithmetic rounds like
 # the plain versions' separate PyTorch ops (see csrc/common.cuh).
 NVCC_FLAGS = (
@@ -42,7 +43,11 @@ NVCC_FLAGS = (
 
 # Launches per kernel, counted by the wrappers right after a successful
 # launch and nowhere else; chip_smoke.py resets and reads them.
-launches = {"match_pairs": 0, "join_candidates": 0, "gather_rows": 0, "track_frames": 0}
+launches = {
+    "match_pairs": 0, "join_candidates": 0, "gather_rows": 0, "track_frames": 0,
+    "track_frames_planar": 0, "picp_solve": 0, "picp_solve_se2": 0,
+    "best_match": 0, "best_match_fast": 0,
+}
 
 
 def reset_launches() -> None:
@@ -148,6 +153,10 @@ _SIGNATURES = {
     "vo_join_candidates": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vo_gather_rows": [_P, _P, _P, ctypes.c_longlong, _I, _P],
     "vo_track_frames": [_P] * 12 + [_I] * 5 + [_P],
+    "vo_track_frames_planar": [_P] * 12 + [_I] * 5 + [_P],
+    "vo_picp_solve": [_P] * 6 + [_I] * 3 + [_P],
+    "vo_picp_solve_se2": [_P] * 6 + [_I] * 3 + [_P],
+    "vo_best_match": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 _lib = None

@@ -1,18 +1,21 @@
-"""K2 (world-join candidate chains) and K4 (the fused tracked-frame loop).
+"""K2 (world-join candidate chains), K4 and K5 (the fused tracked-frame loop,
+SE(3) and planar).
 
 Replaces ``visual_odometry_tpu/ops/pallas/frame_kernel.py``:
 ``join_candidates`` -> ``csrc/join_candidates.cu`` and ``track_frames_fused``
-(SE(3), with ``picp_kernel.gn_loop`` inside) -> ``csrc/track_frames.cu``.
-The sources' headers give each design and what bounds it on the card.
+-> ``csrc/track_frames.cu``, with ``picp_kernel.gn_loop`` inside (K4) or,
+with ``planar=True``, ``picp_kernel.gn_loop_se2`` (K5); the device GN loops
+are ``csrc/gn_loop.cuh``. The sources' headers give each design and what
+bounds it on the card.
 
-The plain K4 (:func:`track_frames_plain`) is a Python loop over frames that
-mirrors the TPU kernel's ``_kernel``/``gn_loop`` term by term — lane work as
-PyTorch ops on the input device, the 30 lane sums added in the kernel's own
-order (:func:`_block_sum`), the 6x6 solve on float32 scalars on the host
-with a correctly rounded sqrt and sin/cos taken on the lanes' device. With
-the library built --fmad=false the two agree bit for bit on the card; any
-last-ulp difference would otherwise grow to ~1e-3 over hundreds of frames
-through the monocular chain.
+The plain version (:func:`track_frames_plain`) is a Python loop over frames
+that mirrors the TPU kernel's ``_kernel``/``gn_loop``/``gn_loop_se2`` term by
+term — lane work as PyTorch ops on the input device, the lane sums (30 for
+SE(3), 12 planar) added in the kernel's own order (:func:`_block_sum`), the
+small solve on float32 scalars on the host with a correctly rounded sqrt and
+sin/cos taken on the lanes' device. With the library built --fmad=false the
+two agree bit for bit on the card; any last-ulp difference would otherwise
+grow to ~1e-3 over hundreds of frames through the monocular chain.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from .. import se3
 from . import _lib
 
 _DET_EPS = 1e-12
@@ -131,20 +135,34 @@ def _transpose3(m):
 
 
 def pack_params(camera_matrix, cam_params, x_init, kernel_threshold, damping, tolerance,
-                keep_outliers: bool, warm_start: bool, min_num_inliers) -> torch.Tensor:
-    """The (40,) float32 parameter row both K4 versions read: [z_near, z_far,
-    cols, rows, kt, keep_outliers, damping, tol, warm_start, min_inliers,
-    K (9), K^-1 (9), initial pose 3x4 (12)] (the TPU kernel's SMEM row)."""
+                keep_outliers: bool, warm_start: bool, min_num_inliers,
+                planar: bool = False, cam_in_robot=None, k_inverse: bool = True) -> torch.Tensor:
+    """The float32 parameter row the frame kernels and the standalone solves
+    read: [z_near, z_far, cols, rows, kt, keep_outliers, damping, tol,
+    warm_start, min_inliers, K (9), K^-1 (9), initial pose 3x4 (12)] — 40
+    floats, the TPU kernel's SMEM row — and, when ``planar``, the camera
+    mount [R|t] (12) and its rigid inverse (12): 64 floats. ``cam_in_robot``
+    None is the identity mount. The standalone solves read no K^-1 and pass
+    ``k_inverse=False``, which leaves that block zero. The knobs and the mount
+    are laid out on the host and cross to the card in one copy."""
     dev = camera_matrix.device
-    knobs = torch.tensor(
+    host = [torch.tensor(
         [float(kernel_threshold), 1.0 if keep_outliers else 0.0, float(damping),
          float(tolerance), 1.0 if warm_start else 0.0, float(min_num_inliers)],
         dtype=torch.float32,
-    ).to(dev)
+    )]
+    if planar:
+        if cam_in_robot is None:
+            mount = torch.eye(4, dtype=torch.float32)
+        else:
+            mount = torch.as_tensor(cam_in_robot, dtype=torch.float32).cpu()
+        host += [mount[:3, :4].reshape(12), se3.inverse(mount)[:3, :4].reshape(12)]
+    host = torch.cat(host).to(dev)
     k = camera_matrix.to(torch.float32)
+    k_inv = torch.linalg.inv(k) if k_inverse else torch.zeros_like(k)
     return torch.cat([
-        cam_params.to(torch.float32).reshape(4), knobs, k.reshape(9),
-        torch.linalg.inv(k).reshape(9), x_init[:3, :4].to(torch.float32).reshape(12),
+        cam_params.to(torch.float32).reshape(4), host[:6], k.reshape(9), k_inv.reshape(9),
+        x_init[:3, :4].to(torch.float32).reshape(12), host[6:],
     ]).contiguous()
 
 
@@ -216,15 +234,67 @@ def _gn_update(sums, pose, damping, tol, min_inl, device):
     return new_pose, active, (new_chi_in, new_chi_out, new_n_in)
 
 
+def _gn_update_se2(sums, pose, par, device):
+    """The planar twin (picp_kernel.py:719-766) on the 12 sums: a Jacobi-scaled
+    3x3 solve through the adjugate inverse, then ``X <- c^-1 T(d) c X`` with
+    ``incr_R = c_inv_R (T(dtheta) c_R)``; ``par`` holds the mount at 40:52 and
+    its inverse at 52:64."""
+    damping, tol, min_inl = par[6], par[7], par[9]
+    c, ci = par[40:52], par[52:64]
+    s = sums.unbind(0)
+    h00, h01, h02, h11, h12, h22 = s[0:6]
+    bv = s[6:9]
+    new_chi_in, new_chi_out, new_n_in = s[9], s[10], s[11]
+    sc = [1.0 / _sqrt(torch.clamp_min(h + damping, 1e-30)) for h in (h00, h11, h22)]
+    s01, s02, s12 = h01 * sc[0] * sc[1], h02 * sc[0] * sc[2], h12 * sc[1] * sc[2]
+    one = torch.ones((), dtype=torch.float32)
+    Ai = _inv3((one, s01, s02, s01, one, s12, s02, s12, one))
+    y = _mat3vec(Ai, (-bv[0] * sc[0], -bv[1] * sc[1], -bv[2] * sc[2]))
+    enough = bool(new_n_in >= min_inl)
+    dx = [y[i] * sc[i] if enough else torch.zeros((), dtype=torch.float32) for i in range(3)]
+    dx2 = dx[0] * dx[0]
+    dx2 = dx2 + dx[1] * dx[1]
+    dx2 = dx2 + dx[2] * dx[2]
+
+    angle = dx[2].reshape(1).to(device)
+    sth, cth = torch.sin(angle).cpu()[0], torch.cos(angle).cpu()[0]
+    z = 0.0 * cth
+    tr = (cth, -sth, z, sth, cth, z, z, z, 1.0 + z)
+    c_r = (c[0], c[1], c[2], c[4], c[5], c[6], c[8], c[9], c[10])
+    ci_r = (ci[0], ci[1], ci[2], ci[4], ci[5], ci[6], ci[8], ci[9], ci[10])
+    incr_r = _mat3mul(ci_r, _mat3mul(tr, c_r))
+    trc = _mat3vec(tr, (c[3], c[7], c[11]))
+    trc = (trc[0] + dx[0], trc[1] + dx[1], trc[2])
+    incr_t = tuple(a + b for a, b in zip(_mat3vec(ci_r, trc), (ci[3], ci[7], ci[11])))
+    r_old = (pose[0], pose[1], pose[2], pose[4], pose[5], pose[6], pose[8], pose[9], pose[10])
+    r_new = _mat3mul(incr_r, r_old)
+    t_new = tuple(a + b for a, b in zip(_mat3vec(incr_r, (pose[3], pose[7], pose[11])), incr_t))
+    new_pose = (
+        r_new[0], r_new[1], r_new[2], t_new[0],
+        r_new[3], r_new[4], r_new[5], t_new[1],
+        r_new[6], r_new[7], r_new[8], t_new[2],
+    )
+    active = enough and bool(dx2 > tol)
+    return new_pose, active, (new_chi_in, new_chi_out, new_n_in)
+
+
 def _block_sum(rows: torch.Tensor) -> torch.Tensor:
-    """Sum (R, S) lane rows -> (R,) on the host, in the CUDA kernel's order:
-    lanes padded to the block's warps, a shuffle-down tree inside each warp
-    (offsets 16, 8, 4, 2, 1), then the warps' partials added in warp order.
-    The same order makes the plain K4 track the kernel bit for bit instead of
-    drifting apart through the ill-conditioned monocular triangulation chain."""
-    r, s = rows.shape
-    lanes = max(64, -(-s // 32) * 32)
-    x = torch.nn.functional.pad(rows, (0, lanes - s)).reshape(r, lanes // 32, 32)
+    """Sum (R, N) lane rows -> (R,) on the host, in the CUDA kernels' order
+    (csrc/gn_loop.cuh). The block has T = min(1024, N rounded up to whole
+    warps, at least 64) threads; thread j first adds the terms of points j,
+    j + T, j + 2T, ... in ascending order (only the standalone solves have
+    N > T), then a shuffle-down tree inside each warp (offsets 16, 8, 4, 2,
+    1), then the warps' partials added in warp order. The same order makes the
+    plain versions track the kernels bit for bit instead of drifting apart
+    through the ill-conditioned monocular triangulation chain."""
+    r, n = rows.shape
+    lanes = min(1024, max(64, -(-n // 32) * 32))
+    per_thread = -(-n // lanes)
+    x = torch.nn.functional.pad(rows, (0, per_thread * lanes - n)).reshape(r, per_thread, lanes)
+    acc = x[:, 0]
+    for i in range(1, per_thread):
+        acc = acc + x[:, i]
+    x = acc.reshape(r, lanes // 32, 32)
     for o in (16, 8, 4, 2, 1):
         x = x[..., :o] + x[..., o:2 * o]
     parts = x[..., 0].cpu().unbind(1)
@@ -234,8 +304,13 @@ def _block_sum(rows: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _gn_loop_plain(num_iterations, min_iterations, par, pose0, wx, wy, wz, mx, my, wgt):
-    """The GN early-exit loop: lane sums on the lanes' device, solve on host."""
+def _gn_loop_plain(num_iterations, min_iterations, par, pose0, wx, wy, wz, mx, my, wgt,
+                   planar: bool = False, rounds_out=None):
+    """The GN early-exit loop: lane sums on the lanes' device, solve on host.
+    ``planar`` swaps the 6-DoF Jacobian and update for the conjugated SE(2)
+    ones (picp_kernel.py:680-706); projection and robust kernel are shared.
+    The number of rounds run is appended to the list ``rounds_out``, if given
+    (the kernels run the same number: they agree bit for bit)."""
     z_near, z_far, cols, rows, kt, keep_out, damping, tol = par[0:8]
     min_inl = par[9]
     k = par[10:19]
@@ -273,28 +348,46 @@ def _gn_loop_plain(num_iterations, min_iterations, par, pose0, wx, wy, wz, mx, m
         a10 = k[3] * iz - k[6] * hy * iz2
         a11 = k[4] * iz - k[7] * hy * iz2
         a12 = k[5] * iz - k[8] * hy * iz2
-        jx = (a00, a01, a02, a01 * (-pz) + a02 * py, a00 * pz + a02 * (-px),
-              a00 * (-py) + a01 * px)
-        jy = (a10, a11, a12, a11 * (-pz) + a12 * py, a10 * pz + a12 * (-px),
-              a10 * (-py) + a11 * px)
+        if planar:
+            c = par[40:52]
+            qx = c[0] * px + c[1] * py + c[2] * pz + c[3]
+            qy = c[4] * px + c[5] * py + c[6] * pz + c[7]
+            ctx = tuple(qx * b - qy * a for a, b in zip(c[0:3], c[4:7]))
+            jx = (a00 * c[0] + a01 * c[1] + a02 * c[2], a00 * c[4] + a01 * c[5] + a02 * c[6],
+                  a00 * ctx[0] + a01 * ctx[1] + a02 * ctx[2])
+            jy = (a10 * c[0] + a11 * c[1] + a12 * c[2], a10 * c[4] + a11 * c[5] + a12 * c[6],
+                  a10 * ctx[0] + a11 * ctx[1] + a12 * ctx[2])
+        else:
+            jx = (a00, a01, a02, a01 * (-pz) + a02 * py, a00 * pz + a02 * (-px),
+                  a00 * (-py) + a01 * px)
+            jy = (a10, a11, a12, a11 * (-pz) + a12 * py, a10 * pz + a12 * (-px),
+                  a10 * (-py) + a11 * px)
+        dof = len(jx)
         is_out_f = is_out.to(torch.float32)
         inl = live * (1.0 - is_out_f)
         rows_l = []
-        for i in range(6):
-            for j in range(i, 6):
+        for i in range(dof):
+            for j in range(i, dof):
                 rows_l.append(w * (jx[i] * jx[j] + jy[i] * jy[j]))
-        for i in range(6):
+        for i in range(dof):
             rows_l.append(w * (jx[i] * ex + jy[i] * ey))
         rows_l += [chi * inl, chi * live * is_out_f, inl]
-        pose, active, stats = _gn_update(_block_sum(torch.stack(rows_l)), pose, damping, tol,
-                                         min_inl, wx.device)
+        sums = _block_sum(torch.stack(rows_l))
+        if planar:
+            pose, active, stats = _gn_update_se2(sums, pose, par, wx.device)
+        else:
+            pose, active, stats = _gn_update(sums, pose, damping, tol, min_inl, wx.device)
         it += 1
+    if rounds_out is not None:
+        rounds_out.append(it)
     return pose, stats
 
 
 def track_frames_plain(params, init_tri, init_tri_ok, cand: JoinCandidates, prev_al, cur_al,
-                       corr_valid, num_iterations: int, min_iterations: int = 1):
-    """Plain PyTorch version of K4, frame by frame."""
+                       corr_valid, num_iterations: int, min_iterations: int = 1,
+                       planar: bool = False, rounds_out=None):
+    """Plain PyTorch version of K4 (and of K5 with ``planar``), frame by frame;
+    each frame's GN round count is appended to the list ``rounds_out``, if given."""
     dev = prev_al.device
     f, depth, s = cand.idx.shape
     par = params.cpu().unbind(0)
@@ -330,7 +423,7 @@ def track_frames_plain(params, init_tri, init_tri_ok, cand: JoinCandidates, prev
         new_pose, (chi_in, chi_out, n_in) = _gn_loop_plain(
             num_iterations, min_iterations, par, pose0,
             torch.where(have, wx, 1.0), torch.where(have, wy, 1.0), torch.where(have, wz, 1.0),
-            torch.where(have, u2, 0.0), torch.where(have, v2, 0.0), weight,
+            torch.where(have, u2, 0.0), torch.where(have, v2, 0.0), weight, planar, rounds_out,
         )
 
         # ---- mid-point triangulation, previous-frame coordinates ----
@@ -378,13 +471,14 @@ def track_frames_plain(params, init_tri, init_tri_ok, cand: JoinCandidates, prev
 
 
 def track_frames_cuda(params, init_tri, init_tri_ok, cand: JoinCandidates, prev_al, cur_al,
-                      corr_valid, num_iterations: int, min_iterations: int = 1):
-    """Launch K4: one CTA, one thread per lane (S <= 1024)."""
+                      corr_valid, num_iterations: int, min_iterations: int = 1,
+                      planar: bool = False):
+    """Launch K4, or K5 with ``planar``: one CTA, one thread per lane (S <= 1024)."""
     f, depth, s = cand.idx.shape
     dev = _lib.cuda_device(prev_al)
     if s > 1024:
         raise ValueError(f"track_frames kernel takes S <= 1024 lanes, got {s}")
-    _lib.check(params, "params", torch.float32, (40,), dev)
+    _lib.check(params, "params", torch.float32, (64 if planar else 40,), dev)
     _lib.check(init_tri, "init_tri", torch.float32, (s, 3), dev)
     _lib.check(init_tri_ok, "init_tri_ok", torch.bool, (s,), dev)
     _lib.check(cand.idx, "cand.idx", torch.int32, (f, depth, s), dev)
@@ -397,7 +491,8 @@ def track_frames_cuda(params, init_tri, init_tri_ok, cand: JoinCandidates, prev_
     tri_ok = torch.empty((f, s), dtype=torch.bool, device=dev)
     stats = torch.empty((f, 4), dtype=torch.float32, device=dev)
     _lib.launch(
-        "track_frames", "vo_track_frames", dev,
+        *(("track_frames_planar", "vo_track_frames_planar") if planar
+          else ("track_frames", "vo_track_frames")), dev,
         *(t.data_ptr() for t in (params, init_tri, init_tri_ok, cand.idx, cand.ok, prev_al,
                                  cur_al, corr_valid, poses, tri, tri_ok, stats)),
         f, s, depth, int(num_iterations), int(min_iterations),
@@ -409,18 +504,21 @@ def track_frames(
     camera_matrix, cam_params, x_init, init_tri, init_tri_ok, cand: JoinCandidates,
     prev_al, cur_al, corr_valid, num_iterations: int, kernel_threshold, damping, tolerance,
     keep_outliers: bool = False, warm_start: bool = False, min_num_inliers=0.0,
-    min_iterations: int = 1, backend: str = "auto",
+    min_iterations: int = 1, backend: str = "auto", planar: bool = False, cam_in_robot=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the whole F-frame tracking loop (the JAX ``track_frames_fused``
-    contract, SE(3)). Pixel rows come pre-gathered to correspondence lanes
+    contract). ``planar`` runs the conjugated-SE(2) solve with ``cam_in_robot``
+    as the mount (None = identity); callers planarize ``x_init`` so the carried
+    trajectory stays in the conjugated subgroup. Pixel rows come pre-gathered to correspondence lanes
     (``prev_al[i] = prev_pts[i][idx1[i]]``, ``cur_al[i] = cur_pts[i][idx2[i]]``)
     and the join chains from :func:`join_candidates`. Returns poses (F, 4, 4),
     tri_points (F, S, 3), tri_valid (F, S) and stats (F, 4) =
     [chi_inliers, chi_outliers, num_inliers, num_solver_corr]."""
     params = pack_params(camera_matrix, cam_params, x_init, kernel_threshold, damping,
-                         tolerance, keep_outliers, warm_start, min_num_inliers)
+                         tolerance, keep_outliers, warm_start, min_num_inliers, planar,
+                         cam_in_robot)
     args = (params, init_tri, init_tri_ok, cand, prev_al, cur_al, corr_valid,
-            num_iterations, min_iterations)
+            num_iterations, min_iterations, planar)
     if _lib.use_kernel(backend, prev_al):
         return track_frames_cuda(*args)
     return track_frames_plain(*args)

@@ -1,13 +1,17 @@
-"""K1: both-direction top-1 appearance matches for a batch of frame pairs.
+"""K1: both-direction top-1 appearance matches for a batch of frame pairs;
+K7: streaming top-1 of a query set against a map-scale database.
 
-Replaces ``visual_odometry_tpu/ops/pallas/matcher_kernel.py:match_pairs_pallas``
-with ``csrc/match_pairs.cu`` (see its header for the design: one CTA per pair,
-FP32 pipes, descriptors in shared memory, bound by FP32 issue).
+Replaces ``visual_odometry_tpu/ops/pallas/matcher_kernel.py``:
+``match_pairs_pallas`` with ``csrc/match_pairs.cu`` (one CTA per pair, FP32
+pipes, descriptors in shared memory) and ``best_match_pallas`` with
+``csrc/best_match.cu`` (query tiles x database splits, then a fold of the
+splits); both are bound by the FP32 instruction rate, see the sources' headers.
 
-Distances use the gram form ``max((|a|^2 + |b|^2) - 2 a.b, 0)`` with every
-dot product and squared norm summed in descriptor order from separately
-rounded products, in the kernel and in :func:`pairwise_sq_dists` alike, so
-the kernel and its plain version agree bitwise.
+Distances use the gram form ``(|a|^2 + |b|^2) - 2 a.b`` with every dot product
+and squared norm summed in descriptor order from separately rounded products,
+in the kernels and in the plain versions alike, so each kernel and its plain
+version agree bitwise. K1 clamps at 0 before it compares; K7 selects on the
+unclamped value and clamps the winner, as the TPU kernels do.
 """
 
 from __future__ import annotations
@@ -77,3 +81,105 @@ def match_pairs(app1, mask1, app2, mask2, backend: str = "auto") -> Tuple[torch.
     if _lib.use_kernel(backend, app1):
         return match_pairs_cuda(app1, mask1, app2, mask2)
     return match_pairs_plain(app1, mask1, app2, mask2)
+
+
+# --------------------------------------------------------------------------
+# K7: map-scale top-1
+# --------------------------------------------------------------------------
+
+PLAIN_CHUNK = 16384   # database rows per step of the plain version
+_TQ, _TK = 128, 256   # the kernel's query tile and staged database tile
+
+
+def _ordered_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(Q, D), (K, D) -> (Q, K) dot products summed in descriptor order."""
+    dot = a[:, None, 0] * b[None, :, 0]
+    for k in range(1, a.shape[-1]):
+        dot.add_(a[:, None, k] * b[None, :, k])
+    return dot
+
+
+def best_match_plain(queries, q_mask, db, db_mask, fast: bool = False):
+    """Plain PyTorch version of K7. Walks the database in chunks of
+    ``PLAIN_CHUNK`` rows (the (Q, K) matrix is never whole in memory) and
+    folds them in ascending order with a strict '<', so the first index wins
+    ties, as in the kernel.
+
+    Exact mode selects on ``(|q|^2 + n_k) - 2 q.k``, unclamped, where n_k is
+    ``|k|^2`` or 3.4e38 with the row zeroed for a masked row. ``fast`` selects
+    on the same expression with q and the rows rounded to bfloat16 inside the
+    dot product (float32 accumulation, float32 norms), clamped at 0 and packed
+    with the column into one 64-bit key (distance bits high, column low), then
+    recomputes the winner's distance exactly as sum((q - k)^2); a masked
+    winner gives 3.4e38. A NaN distance never wins in either mode."""
+    nq, nk = queries.shape[0], db.shape[0]
+    dev = queries.device
+    qn = _sq_norms(queries)
+    qd = queries.to(torch.bfloat16).to(torch.float32) if fast else queries
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    best = torch.full((nq,), BIG, dtype=torch.float32, device=dev)
+    arg = torch.zeros((nq,), dtype=torch.int64, device=dev)
+    best_key = (best.view(torch.int32).to(torch.int64) << 32) | arg
+    for lo in range(0, nk, PLAIN_CHUNK):
+        m = db_mask[lo:lo + PLAIN_CHUNK]
+        rows = torch.where(m[:, None], db[lo:lo + PLAIN_CHUNK], 0.0)
+        dbn = torch.where(m, _sq_norms(rows), BIG)
+        if fast:
+            rows = rows.to(torch.bfloat16).to(torch.float32)
+        v = (qn[:, None] + dbn[None, :]) - 2.0 * _ordered_dot(qd, rows)
+        v = torch.where(v.isnan(), inf, v)
+        cols = torch.arange(lo, lo + rows.shape[0], dtype=torch.int64, device=dev)
+        if fast:
+            v = torch.where(v < 0.0, 0.0, v)
+            key = ((v.view(torch.int32).to(torch.int64) << 32) | cols[None, :]).amin(dim=1)
+            best_key = torch.minimum(best_key, key)
+        else:
+            tile_min = v.amin(dim=1)
+            tile_arg = torch.where(v == tile_min[:, None], cols[None, :], nk).amin(dim=1)
+            better = tile_min < best
+            arg = torch.where(better, tile_arg, arg)
+            best = torch.where(better, tile_min, best)
+    if fast:
+        arg = best_key & 0xFFFFFFFF
+        row = arg.clamp(0, nk - 1)
+        diff = queries - db[row]
+        best = torch.where(db_mask[row], _sq_norms(diff), BIG)
+    dist = torch.where(best < 0.0, 0.0, best)
+    return torch.where(q_mask, dist, BIG), arg.to(torch.int32)
+
+
+def best_match_cuda(queries, q_mask, db, db_mask, fast: bool = False):
+    """Launch K7. queries (Q, D) and db (K, D) float32, masks bool, contiguous
+    on one CUDA device; K >= 1, D <= 32."""
+    nq, d = queries.shape
+    nk = db.shape[0]
+    dev = _lib.cuda_device(queries)
+    if nk < 1 or d < 1 or d > 32:
+        raise ValueError(f"best_match kernel takes K >= 1 and 1 <= D <= 32, got K={nk}, D={d}")
+    _lib.check(queries, "queries", torch.float32, (nq, d), dev)
+    _lib.check(q_mask, "q_mask", torch.bool, (nq,), dev)
+    _lib.check(db, "db", torch.float32, (nk, d), dev)
+    _lib.check(db_mask, "db_mask", torch.bool, (nk,), dev)
+    # Enough (query tile, database split) CTAs of 128 threads to fill the card.
+    q_tiles = max(1, -(-nq // _TQ))
+    splits = max(1, min(-(-nk // _TK), -(-2048 // q_tiles)))
+    part_key = torch.empty((splits, nq), dtype=torch.int64, device=dev)
+    dist = torch.empty((nq,), dtype=torch.float32, device=dev)
+    idx = torch.empty((nq,), dtype=torch.int32, device=dev)
+    _lib.launch(
+        "best_match_fast" if fast else "best_match", "vo_best_match", dev,
+        *(t.data_ptr() for t in (queries, q_mask, db, db_mask, part_key, dist, idx)),
+        nq, nk, d, splits, int(fast),
+    )
+    return dist, idx
+
+
+def best_match(queries, q_mask, db, db_mask, backend: str = "auto", fast: bool = False):
+    """Top-1 database row per query -> (squared distance (Q,) float32, index
+    (Q,) int32): first index wins ties, a masked row never wins (an all-masked
+    database gives index 0), a masked query returns 3.4e38. With ``fast`` the
+    selection runs on a bfloat16-rounded gram and the returned distance is
+    the exact float32 one of the returned index."""
+    if _lib.use_kernel(backend, queries):
+        return best_match_cuda(queries, q_mask, db, db_mask, fast)
+    return best_match_plain(queries, q_mask, db, db_mask, fast)

@@ -11,10 +11,11 @@ order.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils.config import MATCHER_PRECISIONS
 from .kernels import matcher_kernel
 from .kernels.matcher_kernel import pairwise_sq_dists  # noqa: F401  (public re-export)
 
@@ -25,6 +26,27 @@ class Correspondences(NamedTuple):
     idx1: torch.Tensor   # (..., S) int32
     idx2: torch.Tensor   # (..., S) int32
     valid: torch.Tensor  # (..., S) bool
+
+
+def best_match(queries, q_mask, db, db_mask, backend: str = "auto",
+               precision: str = "highest") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-1 nearest database row per query -> (squared distance, index), the
+    kd-tree best-match query (eigen_kdtree.h:90-115, brute_force_search.h:22-41)
+    at map scale: queries (Q, D), db (K, D), bool masks. First index wins
+    ties, masked queries return 3.4e38, masked database rows never win.
+
+    ``backend="auto"`` launches kernel K7 for CUDA tensors at any database
+    size and runs its plain version for CPU tensors. ``precision="fast"``
+    selects on a bfloat16-rounded gram and re-scores the winner exactly in
+    float32: returned distances, and so every radius decision, are exact for
+    the returned index; the selection can differ from ``"highest"`` only
+    between candidates within bfloat16 rounding of each other."""
+    if precision not in MATCHER_PRECISIONS:
+        raise ValueError(f"precision={precision!r}; expected one of {MATCHER_PRECISIONS}")
+    return matcher_kernel.best_match(
+        queries.contiguous(), q_mask.contiguous(), db.contiguous(), db_mask.contiguous(),
+        backend=backend, fast=precision == "fast",
+    )
 
 
 def match_appearances_batch(app1, mask1, app2, mask2, radius: float = 0.1,

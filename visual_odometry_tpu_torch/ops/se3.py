@@ -87,3 +87,43 @@ def chain_products(mats: torch.Tensor) -> torch.Tensor:
         out = torch.cat([out[:offset], out[:-offset] @ out[offset:]], dim=0)
         offset *= 2
     return out
+
+
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """``(..., 3)`` -> skew-symmetric ``(..., 3, 3)`` (utils.h:96-102)."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    o = torch.zeros_like(x)
+    return torch.stack(
+        [torch.stack([o, -z, y], -1), torch.stack([z, o, -x], -1), torch.stack([-y, x, o], -1)],
+        -2,
+    )
+
+
+def v2t_se2(v: torch.Tensor) -> torch.Tensor:
+    """Planar ``(x, y, theta)`` -> ``(..., 4, 4)`` pose acting in the z = 0
+    plane: translation (x, y, 0) and a pure z-rotation (the est_SE2 chart)."""
+    x, y, theta = v[..., 0], v[..., 1], v[..., 2]
+    t = torch.stack([x, y, torch.zeros_like(x)], -1)
+    return pose_from_rt(rotation_z(theta), t)
+
+
+def t2v_se2(pose: torch.Tensor) -> torch.Tensor:
+    """``(..., 4, 4)`` planar pose -> ``(x, y, theta)``; inverse of :func:`v2t_se2`."""
+    theta = torch.atan2(pose[..., 1, 0], pose[..., 0, 0])
+    return torch.stack([pose[..., 0, 3], pose[..., 1, 3], theta], -1)
+
+
+def project_se2(pose: torch.Tensor) -> torch.Tensor:
+    """Nearest planar pose on the chart: keep (x, y) and the yaw angle. It
+    planarizes the SE(3) two-view initialization of the SE(2) estimation."""
+    return v2t_se2(t2v_se2(pose))
+
+
+def planar_deviation(poses: torch.Tensor, cam_in_robot: torch.Tensor) -> float:
+    """How far camera poses ``(F, 4, 4)`` lie outside the SE(2) subgroup
+    conjugated by the mount: the largest z-translation or off-plane rotation
+    entry of ``c X c^-1`` (0 for an exactly planar robot motion)."""
+    c = cam_in_robot.to(poses)
+    conj = c @ poses @ inverse(c)
+    return float(torch.stack([conj[:, 2, 3].abs().max(), conj[:, 2, 0:2].abs().max(),
+                              conj[:, 0:2, 2].abs().max()]).max())

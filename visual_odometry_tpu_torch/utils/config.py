@@ -12,17 +12,26 @@ Backend knobs take ``auto | cuda | torch``:
   * ``cuda``  — the kernel; a CPU tensor raises;
   * ``torch`` — the plain PyTorch version on any device.
 
-``matcher_backend`` routes the pair matcher (kernel K1), ``scan_backend`` the
-fused frame loop and its helpers (K2 join candidates, K3 lane gathers, K4
-frame tracking). ``solver_backend`` routes the standalone PICP solve, which
-this package does not port yet; it is validated and kept for field parity.
+``matcher_backend`` routes the pair matcher (kernel K1) and the map-scale
+top-1 matcher (K7), ``scan_backend`` the fused frame loop and its helpers (K2
+join candidates, K3 lane gathers, K4 frame tracking, K5 its planar form),
+``solver_backend`` the standalone SE(3) PICP solve of ``ops/picp.solve`` (K6;
+``torch`` is the plain round-by-round loop).
+
+``scan_backend`` has one more value, ``step``: the frame loop as a Python
+loop over ``pipeline.frame_step`` (the JAX package's ``"xla"`` scan), which
+solves each frame through ``ops/picp.solve`` or ``ops/picp_se2.solve_se2``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 BACKENDS = ("auto", "cuda", "torch")
+SCAN_BACKENDS = BACKENDS + ("step",)
+MATCHER_PRECISIONS = ("highest", "fast")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +55,10 @@ class VOConfig:
     matcher_backend: str = "auto"
     matcher_precision: str = "highest"
 
-    # --- estimation group (planar est_SE2 is not ported yet) ---
+    # --- estimation group (reference branch est_SE2) ---
+    # planar=True constrains the per-frame solve to SE(2) increments in the
+    # robot plane (ops/picp_se2, kernel K5). cam_in_robot is the camera mount
+    # as a nested tuple (hashable, as in the JAX config); None = identity.
     planar: bool = False
     cam_in_robot: "tuple | None" = None
 
@@ -67,23 +79,31 @@ class VOConfig:
     fused_join_depth: int = 2
 
     def __post_init__(self):
-        for name in ("matcher_backend", "scan_backend", "solver_backend"):
+        for name, allowed in (("matcher_backend", BACKENDS), ("scan_backend", SCAN_BACKENDS),
+                              ("solver_backend", BACKENDS),
+                              ("matcher_precision", MATCHER_PRECISIONS)):
             value = getattr(self, name)
-            if value not in BACKENDS:
-                raise ValueError(f"{name}={value!r}; expected one of {BACKENDS}")
+            if value not in allowed:
+                raise ValueError(f"{name}={value!r}; expected one of {allowed}")
         if self.fused_join_depth < 1:
             raise ValueError("fused_join_depth must be >= 1")
 
     def replace(self, **kw) -> "VOConfig":
         return dataclasses.replace(self, **kw)
 
+    def planar_mount(self):
+        """The (4, 4) float32 mount matrix as a numpy array, or None."""
+        if self.cam_in_robot is None:
+            return None
+        return np.asarray(self.cam_in_robot, np.float32)
+
+    def with_planar_mount(self, cam_in_robot) -> "VOConfig":
+        """Enable SE(2) estimation with the given camera-mount pose."""
+        mount = tuple(tuple(float(x) for x in row) for row in np.asarray(cam_in_robot))
+        return self.replace(planar=True, cam_in_robot=mount)
+
     def check_supported(self) -> None:
         """Raise NotImplementedError for options this port does not run yet."""
-        if self.planar:
-            raise NotImplementedError(
-                "planar=True (est_SE2, kernel K5) is not ported yet: ROADMAP.md "
-                "queue 1 item 7 / queue 2 K5"
-            )
         if self.num_chunks > 1:
             raise NotImplementedError(
                 "num_chunks > 1 (chunked tracking, parallel/posegraph) is not "

@@ -15,12 +15,13 @@ import torch
 from ..models.landmark_map import LandmarkMap
 from ..models.pipeline import FrameData, VOState
 from ..ops.camera import Camera
+from ..ops.picp import PICPStats
 from .config import VOConfig
 
 # JAX backend strings -> this package's. Pallas kernels (and their
 # interpreter) map to the CUDA kernels' plain/auto counterparts: "auto"
 # picks the kernel on a CUDA tensor; "xla" and the interpreter forms are the
-# plain path.
+# plain path. For scan_backend, JAX's "xla" is the frame_step scan: "step".
 _BACKEND_MAP = {
     "auto": "auto",
     "pallas": "cuda",
@@ -55,7 +56,10 @@ def config_from_dict(d: dict) -> VOConfig:
         if key in kw:
             if kw[key] not in _BACKEND_MAP:
                 raise ValueError(f"{key}={kw[key]!r} has no counterpart in this package")
-            kw[key] = _BACKEND_MAP[kw[key]]
+            if key == "scan_backend" and kw[key] == "xla":
+                kw[key] = "step"
+            else:
+                kw[key] = _BACKEND_MAP[kw[key]]
     if kw.get("cam_in_robot") is not None:
         kw["cam_in_robot"] = tuple(tuple(float(x) for x in row) for row in kw["cam_in_robot"])
     return VOConfig(**kw)
@@ -95,3 +99,40 @@ def vo_state_from_arrays(ref: dict, point_lookup, tri_points, tri_valid, x_curr,
         history=_t(history, torch.float32, device),
         map=landmark_map_from_arrays(**map_arrays, device=device),
     )
+
+
+def vo_state_to_arrays(state: VOState) -> dict:
+    """The state as a flat dict of numpy arrays under the checkpoint's field
+    names (``ref_points`` ... ``map_count``), the reverse of
+    :func:`vo_state_from_flat`."""
+    def n(t):
+        return t.detach().cpu().numpy()
+
+    return dict(
+        ref_points=n(state.ref.points), ref_appearances=n(state.ref.appearances),
+        ref_mask=n(state.ref.mask), ref_ids=n(state.ref.ids),
+        point_lookup=n(state.point_lookup), tri_points=n(state.tri_points),
+        tri_valid=n(state.tri_valid), x_curr=n(state.x_curr), history=n(state.history),
+        map_points=n(state.map.points), map_appearances=n(state.map.appearances),
+        map_valid=n(state.map.valid), map_count=n(state.map.count),
+    )
+
+
+def vo_state_from_flat(a: dict, device="cpu") -> VOState:
+    """A state from the flat dict of :func:`vo_state_to_arrays` (or from the
+    fields of a JAX ``VOState`` under the same names)."""
+    return vo_state_from_arrays(
+        ref=dict(points=a["ref_points"], appearances=a["ref_appearances"], mask=a["ref_mask"],
+                 ids=a["ref_ids"]),
+        point_lookup=a["point_lookup"], tri_points=a["tri_points"], tri_valid=a["tri_valid"],
+        x_curr=a["x_curr"], history=a["history"],
+        map_arrays=dict(points=a["map_points"], appearances=a["map_appearances"],
+                        valid=a["map_valid"], count=a["map_count"]),
+        device=device,
+    )
+
+
+def picp_stats_from_arrays(chi_inliers, chi_outliers, num_inliers, device="cpu") -> PICPStats:
+    return PICPStats(chi_inliers=_t(chi_inliers, torch.float32, device),
+                     chi_outliers=_t(chi_outliers, torch.float32, device),
+                     num_inliers=_t(num_inliers, torch.int32, device))

@@ -1,0 +1,94 @@
+"""Per-stage wall-clock timing (the ``StageTimer`` of
+visual_odometry_tpu.utils.profiling; the rest of that module is not ported).
+
+The reference times its data-association stage per frame into
+``time_known.txt`` (vo_daKnown.cpp:127-129, 163-164); :meth:`StageTimer.dump`
+writes that file.
+
+The pipeline's entry points wrap their own steps in :func:`stage`, so a
+``torch.profiler`` trace shows them as ``vo/<name>`` ranges, and a caller that
+wants their times runs the entry points inside :func:`stage_times`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from collections import defaultdict
+from typing import Dict, Iterator, List, Optional
+
+from torch.profiler import record_function
+
+from .timing import sync
+
+
+class StageTimer:
+    """Accumulating per-stage wall-clock timer.
+
+    >>> t = StageTimer()
+    >>> with t.stage("matching", sync_on=result_holder):
+    ...     ...
+    >>> t.summary()                      # {'matching': {...}}
+    """
+
+    def __init__(self) -> None:
+        self.samples: Dict[str, List[float]] = defaultdict(list)
+
+    @contextlib.contextmanager
+    def stage(self, name: str, sync_on=None) -> Iterator[None]:
+        """Time the block; the clock stops after the device has finished:
+        ``sync_on`` is a tensor tree to wait for, None waits for the current
+        CUDA device."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            sync(sync_on)
+            self.samples[name].append(time.perf_counter() - t0)
+
+    def add(self, name: str, seconds: float) -> None:
+        self.samples[name].append(seconds)
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        return {
+            name: {"count": len(xs), "total_s": sum(xs), "mean_ms": 1e3 * sum(xs) / len(xs),
+                   "min_ms": 1e3 * min(xs), "max_ms": 1e3 * max(xs)}
+            for name, xs in self.samples.items()
+        }
+
+    def dump(self, file_path: str, name: Optional[str] = None) -> None:
+        """One duration (ms) per line — the ``time_known.txt`` contract."""
+        names = [name] if name else sorted(self.samples)
+        with open(file_path, "w") as f:
+            for n in names:
+                for x in self.samples[n]:
+                    f.write(f"{x * 1e3:g}\n")
+
+
+_collecting: Optional[StageTimer] = None
+
+
+@contextlib.contextmanager
+def stage(name: str) -> Iterator[None]:
+    """One named step of a pipeline entry point: always a ``torch.profiler``
+    range ``vo/<name>``; inside :func:`stage_times` also a wall-clock sample
+    ended by a device sync (which serializes host and device: the samples add
+    up to more than an untimed call)."""
+    with record_function("vo/" + name):
+        if _collecting is None:
+            yield
+        else:
+            with _collecting.stage(name):
+                yield
+
+
+@contextlib.contextmanager
+def stage_times() -> Iterator[StageTimer]:
+    """Collect the :func:`stage` samples of everything run inside the block."""
+    global _collecting
+    previous, timer = _collecting, StageTimer()
+    _collecting = timer
+    try:
+        yield timer
+    finally:
+        _collecting = previous
