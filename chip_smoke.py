@@ -10,10 +10,15 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      CUDA-event times and its bound on this card: K1 pair matcher, K2 join
      candidates, K3 lane gather, K4 fused frame loop and K5 its planar form on
      the main path's own inputs (S = 1024 slots x 512 frames; the plain K4/K5
-     are Python loops: K4 is compared over all 510 tracked frames, K5 over
-     the first 128), K6 standalone solves (SE(3) and planar) at N = 1024 and 8192,
+     are Python loops: K4 is compared over the first 256 tracked frames, K5
+     over the first 128; path B holds K4 to the plain run at full depth), K6 standalone solves (SE(3) and planar) at N = 1024 and 8192,
      K7 map-scale matcher (exact and fast) at Q = 1024, K = 2^20 with masked
-     rows holding NaN; K5's inputs are path D's;
+     rows holding NaN; K5's inputs are path D's; K8 batched frame loop at
+     N = 64 sequences x 128 slots x 126 tracked frames, SE(3) and planar, per
+     sequence against K4/K5 launched alone and its first sequence against
+     the plain version over all 126 frames; K9 segment sum and K10 table gather at the sparse-BA
+     corridor's shapes (N ~ 6e5, T = 512, R = 36 / 6 and 12 / 6) beside
+     index_add_ and index_select; K11 linearization at N = 1024 and 8192;
   4. path A: the reference-format applications — generate_dataset (40 frames,
      400 landmarks), apps.run_vo_complete, run_vo_se2, run_vo_da_known and
      run_relocalize (both matcher precisions) on cuda, apps.run_evaluation —
@@ -30,8 +35,20 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      a checkpoint round trip, held against one shot;
   9. step form: the first 18 frames of path B through scan_backend="step"
      (one K6 launch a tracked frame), held against the fused launch.
-``python3 chip_smoke.py --stages`` instead runs the entry points of paths B, C
-and D inside ``profiling.stage_times`` and prints the time of each step the
+  10. path E: serving, parallel.multiseq.run_sequences_batched over 64
+     sequences x 128 frames x 128 slots (landmark fields 100-163, none left
+     out; K1-K3 once a stage over the flattened batch, K8 once), each sequence
+     held against its own run_sequence and to a full set of inliers in every
+     frame, and a planar batch of 8;
+  11. path F: refinement — (1) path A's dataset through run_vo_complete with
+     refine_iterations=5, sparse and dense, and run_evaluation; (2) sparse
+     bundle adjustment at 512 poses x 100,000 landmarks, 3 LM steps of 64 CG
+     iterations, packed and unpacked, with the K9/K10 launch counts reckoned
+     from the code path;
+  12. path G: K11 through its public entry point at N = 8192 beside
+     ops.picp.linearize.
+``python3 chip_smoke.py --stages`` instead runs the entry points of paths B, C,
+D and E and one sparse-BA step of path F(2) in each layout inside ``profiling.stage_times`` and prints the time of each step the
 pipeline itself marks (ended by a sync, median of 5), then each path's kernel
 times and device-busy share under torch.profiler, and no result line.
 
@@ -67,13 +84,25 @@ KERNELS = {
     "picp_solve_se2": (_CSRC + "picp_solve.cu", _PALLAS + "picp_kernel.py:1065", "C"),
     "best_match": (_CSRC + "best_match.cu", _PALLAS + "matcher_kernel.py:136", "C"),
     "best_match_fast": (_CSRC + "best_match.cu", _PALLAS + "matcher_kernel.py:136", "C"),
+    "track_frames_batched": (_CSRC + "track_frames.cu", _PALLAS + "frame_kernel.py:780", "E"),
+    "track_frames_batched_planar": (_CSRC + "track_frames.cu", _PALLAS + "picp_kernel.py:776",
+                                    "E"),
+    "segment_sum": (_CSRC + "segment_sum.cu", _PALLAS + "segsum_kernel.py:54", "F"),
+    "take_table": (_CSRC + "take_table.cu", _PALLAS + "gather_kernel.py:129", "F"),
+    "picp_linearize": (_CSRC + "picp_linearize.cu", _PALLAS + "picp_kernel.py:141", "G"),
 }
 MAIN_PATH = ("match_pairs", "join_candidates", "gather_rows", "track_frames")
+# Path A's applications run K1-K7 except the standalone planar solve.
+PATH_A = MAIN_PATH + ("track_frames_planar", "picp_solve", "best_match", "best_match_fast")
 K4_POSE_TOL = 2e-3   # the repo's fused-vs-scan trajectory tolerance (tests/test_pipeline.py:331)
 K1_DIST_RTOL = 1e-5
 GN_POSE_TOL = 1e-5   # K5/K6 against their plain versions (bitwise expected)
 PLANAR_DEV_TOL = 1e-4
-K4_PLAIN_FRAMES, K5_PLAIN_FRAMES = 510, 128
+K4_PLAIN_FRAMES, K5_PLAIN_FRAMES = 256, 128
+K9_RTOL, K9_ATOL = 2e-5, 1e-4    # another order of the float32 sum (tests/test_pallas_kernels.py:266)
+K11_RTOL = 1e-5                  # of the system's largest entry (bitwise expected)
+SERVE_B, SERVE_FRAMES, SERVE_SLOTS = 64, 128, 128
+BA_POSES, BA_LANDMARKS, BA_STEPS, BA_CG = 512, 100_000, 3, 64
 MOUNT_V = (0.05, -0.1, 0.02, 0.01, -0.02, 0.015)   # a non-identity camera mount, Euler chart
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate,
@@ -145,7 +174,7 @@ def mount_matrix(device):
     return se3.v2t_euler(torch.tensor(MOUNT_V)).to(device)
 
 
-def path_d_inputs(frames: int, slots: int, device):
+def path_d_inputs(frames: int, slots: int, device, seed: int = 0):
     """Path B's landmark field and orbit seen by a planar robot: the camera
     pose of frame i is ``c^-1 T(x, y, theta) c`` with the mount c, so the
     motion lies in the subgroup the planar solver moves in. (Path B's own
@@ -158,7 +187,7 @@ def path_d_inputs(frames: int, slots: int, device):
     from visual_odometry_tpu_torch.ops.camera import project_points
     from visual_odometry_tpu_torch.utils import synthetic
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     world = torch.from_numpy(np.stack([rng.uniform(-1.5, 1.5, slots),
                                        rng.uniform(-1.2, 1.2, slots),
                                        rng.uniform(2.0, 4.0, slots)], axis=1).astype(np.float32))
@@ -461,6 +490,222 @@ def compare_matchers(device, table, backend: str = "cuda", nq: int = 1024, nk: i
             library_ms=None)
 
 
+def serving_inputs(count: int, frames: int, slots: int, config, device):
+    """``count`` stacked sequences (points, appearances, masks) of path E's
+    kind, landmark fields 100 .. 100 + count - 1, none left out:
+    ``generate_tracking_sequence(default_rng(seed), frames, slots)`` or, for a
+    planar config, path D's kind of motion over landmark field ``seed``."""
+    import torch
+
+    from visual_odometry_tpu_torch.utils import synthetic
+
+    seqs = []
+    for seed in range(100, 100 + count):
+        if config.planar:
+            seqs.append(path_d_inputs(frames, slots, device, seed=seed))
+        else:
+            seqs.append(tuple(
+                torch.from_numpy(x).to(device) for x in
+                synthetic.generate_tracking_sequence(np.random.default_rng(seed), frames, slots)))
+    return tuple(torch.stack([q[k] for q in seqs]).contiguous() for k in range(3))
+
+
+def require_tracked(outs, traj, slots: int, label: str):
+    """Every sequence of a serving batch tracked: finite poses and, the data
+    being exact, every slot an inlier in every frame."""
+    import torch
+
+    require(bool(torch.isfinite(traj).all()), f"{label}: non-finite poses")
+    least = outs.num_inliers.reshape(outs.num_inliers.shape[0], -1).min(dim=1).values
+    lost = [[100 + i, int(v)] for i, v in enumerate(least.tolist()) if v < slots]
+    require(not lost, f"{label}: fields that lost inliers [field, least of {slots}]: {lost}")
+
+
+def compare_serving(camera, config, seqs, device, table, rounds_frames: int = 14, reps: int = 3):
+    """K8 (SE(3), or planar for a planar config): one launch over all the
+    sequences against K4/K5 launched alone on each (every output of every
+    sequence), its time beside one single launch's, and the first sequence of
+    that launch against the plain version over all its frames."""
+    import torch
+
+    from visual_odometry_tpu_torch.ops.kernels import frame_kernel
+
+    planar = config.planar
+    name = "track_frames_batched_planar" if planar else "track_frames_batched"
+    count = seqs[0].shape[0]
+    singles = [kernel_inputs(camera, config, *(x[i] for x in seqs))["track_frames"]
+               for i in range(count)]
+
+    def batched(rows):
+        stack = lambda k: torch.stack([a[k] for a in rows]).contiguous()   # noqa: E731
+        cand = frame_kernel.JoinCandidates(
+            *(torch.stack([a[3][q] for a in rows]).contiguous() for q in range(3)))
+        pose0 = torch.stack([a[0][28:40] for a in rows]).contiguous()
+        return (rows[0][0], pose0, stack(1), stack(2), cand, stack(4), stack(5), stack(6),
+                config.gn_iterations, config.gn_min_iterations, planar)
+
+    args = batched(singles)
+    out = frame_kernel.track_frames_batched_cuda(*args)
+    require(all(bool(torch.isfinite(x.float()).all()) for x in out), f"{name}: non-finite output")
+    least = out[3][..., 2].min(dim=1).values
+    lost = [[100 + i, int(v)] for i, v in enumerate(least.tolist()) if v < seqs[0].shape[2]]
+    require(not lost, f"{name}: fields that lost inliers [field, least]: {lost}")
+    err_single = 0.0
+    for i, a in enumerate(singles):
+        alone = frame_kernel.track_frames_cuda(*a)
+        err_single = max(err_single, max(float((o[i].float() - x.float()).abs().max())
+                                         for o, x in zip(out, alone)))
+    require(err_single == 0.0,
+            f"{name}: a sequence differs from its single launch by {err_single}")
+
+    first = batched(singles[:1])
+    ref, plain_ms = timed_call(lambda: frame_kernel.track_frames_batched_plain(*first), device)
+    err = float((out[0][:1] - ref[0]).abs().max())
+    tol = GN_POSE_TOL if planar else K4_POSE_TOL
+    require(err <= tol, f"{name}: poses differ from the plain version by {err} > {tol}")
+    require(torch.equal(out[2][:1], ref[2]), f"{name}: triangulation validity differs from plain")
+
+    ms = time_ms(lambda: frame_kernel.track_frames_batched_cuda(*args), device, reps)
+    single_ms = time_ms(lambda: frame_kernel.track_frames_cuda(*singles[0]), device, reps)
+    rounds = []
+    frame_kernel.track_frames_plain(*head_frames(singles[0], rounds_frames), rounds_out=rounds)
+    rounds_per_frame = sum(rounds) / len(rounds)
+    n, f, depth, s = args[4].idx.shape
+    moved = nbytes(args[0], args[1], args[2], args[3], args[4].idx, args[4].ok, args[5], args[6],
+                   args[7]) + n * f * (64 + s * 13 + 16)
+    ops = n * f * s * (rounds_per_frame * ROUND_FLOPS[planar] + FRAME_FLOPS)
+    bound_ms, bound_by = bound(moved, ops)
+    table[name] = dict(
+        max_abs_err=err_single, max_abs_err_vs_plain=err, ms=ms, plain_ms=plain_ms,
+        plain_shape=[1, f, s], bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, sequences=n, frames=f, slots=s, single_launch_ms=single_ms,
+        ms_over_single_launch=ms / single_ms,
+        gn_rounds_per_frame_first_sequence_head=rounds_per_frame)
+
+
+def corridor(device):
+    """Path F(2)'s problem: ``generate_ba_corridor(f=512, l=100_000)``, the
+    production point of benchmarks/bench_sparse_ba.py:38-47."""
+    import torch
+
+    from visual_odometry_tpu_torch.utils import synthetic
+
+    k, problem, n_live = synthetic.generate_ba_corridor(f=BA_POSES, l=BA_LANDMARKS, device=device)
+    return torch.from_numpy(k).to(device), problem, n_live
+
+
+def compare_sparse_ba_kernels(problem, device, table, reps: int = 10):
+    """K9 and K10 at the shapes a sparse-BA step gives them: the corridor's
+    own frame ids (masked observations dropped through id T) and pose rows;
+    K9 at R = 36 and 6 with random rows beside ``index_add_``, K10 at R = 12
+    (the pose rows) and 6 beside ``index_select``."""
+    import torch
+
+    from visual_odometry_tpu_torch.ops.kernels import gather_kernel, segsum_kernel
+
+    f = problem.poses.shape[0]
+    n = problem.uv.shape[0]
+    rng = np.random.default_rng(0)
+    seg = torch.where(problem.obs_mask, problem.frame_idx, f).contiguous()
+    seg64 = seg.long()
+    row = dict(max_abs_err=0.0)
+    for r in (36, 6):
+        vals = torch.from_numpy(rng.normal(size=(n, r)).astype(np.float32)).to(device)
+        got = segsum_kernel.segment_sum_small_cuda(vals, seg, f)
+        ref = segsum_kernel.segment_sum_small_plain(vals, seg, f)
+        again = segsum_kernel.segment_sum_small_cuda(vals, seg, f)
+        err = float((got - ref).abs().max())
+        require(bool(torch.isclose(got, ref, rtol=K9_RTOL, atol=K9_ATOL).all()),
+                f"K9 R={r}: sums differ from the plain version by {err}")
+        bound_ms, bound_by = bound(nbytes(vals, seg) + f * r * 4, n * r)
+
+        def library():
+            return torch.zeros((f + 1, r), device=device).index_add_(0, seg64, vals)
+
+        row[f"r{r}"] = dict(
+            ms=time_ms(lambda: segsum_kernel.segment_sum_small_cuda(vals, seg, f), device, reps),
+            plain_ms=time_ms(lambda: segsum_kernel.segment_sum_small_plain(vals, seg, f), device,
+                             reps),
+            library_ms=time_ms(library, device, reps), bound_ms=bound_ms, bound_by=bound_by,
+            max_abs_err=err, run_to_run_max_abs_diff=float((got - again).abs().max()))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    row.update({k: v for k, v in row["r36"].items() if k != "max_abs_err"})
+    row.update(rows=n, segments=f)
+    table["segment_sum"] = row
+
+    idx = torch.where(problem.obs_mask, problem.frame_idx, 0).contiguous()
+    idx64 = idx.long()
+    pose_rows = problem.poses[:, :3, :4].reshape(f, 12).T.contiguous()
+    row = dict(max_abs_err=0.0)
+    for r in (12, 6):
+        tab = pose_rows[:r].contiguous()
+        got = gather_kernel.take_table_cuda(tab, idx)
+        require(torch.equal(got, gather_kernel.take_table_plain(tab, idx)),
+                f"K10 R={r}: the gather differs from the plain version")
+        bound_ms, bound_by = bound(nbytes(tab, idx, got), 0.0)
+        row[f"r{r}"] = dict(
+            ms=time_ms(lambda: gather_kernel.take_table_cuda(tab, idx), device, reps),
+            plain_ms=time_ms(lambda: gather_kernel.take_table_plain(tab, idx), device, reps),
+            library_ms=time_ms(lambda: torch.index_select(tab, 1, idx64), device, reps),
+            bound_ms=bound_ms, bound_by=bound_by)
+    edge = torch.tensor([-7, 0, f - 1, f, 2**30], dtype=torch.int32, device=device)
+    require(torch.equal(gather_kernel.take_table_cuda(pose_rows, edge),
+                        gather_kernel.take_table_plain(pose_rows, edge)),
+            "K10: out-of-range indices are not clipped like the plain version's")
+    row.update(row["r12"])
+    row.update(columns=n, table_columns=f)
+    table["take_table"] = row
+
+
+def linearize_problem(n: int, device, seed: int = 0):
+    """The workload of benchmarks/bench_picp.py: uniform points, the default
+    camera at the identity, uniform measurements, every weight 1."""
+    import torch
+
+    from visual_odometry_tpu_torch.utils import synthetic
+
+    rng = np.random.default_rng(seed)
+    world = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n), rng.uniform(1, 4, n)],
+                     axis=1).astype(np.float32)
+    meas = rng.uniform(0, 480, (n, 2)).astype(np.float32)
+    cam = synthetic.default_camera(device=device)
+    return cam, tuple(torch.from_numpy(x).to(device)
+                      for x in (world, meas, np.ones(n, np.float32)))
+
+
+def compare_linearize(device, table, reps: int = 10):
+    """K11 against its plain version at N = 1024 and N = 8192, robust kernel
+    thresholds that keep and that split the points, ``keep_outliers`` both ways."""
+    from visual_odometry_tpu_torch.ops.kernels import picp_kernel
+
+    row = dict(max_abs_err=0.0, library_ms=None)
+    for n in (1024, 8192):
+        cam, pts = linearize_problem(n, device)
+        head = (cam.camera_matrix, cam.world_in_camera, cam.params())
+        err = 0.0
+        for kt, keep in ((1e4, False), (2e3, True)):
+            h, b, st = picp_kernel.linearize(*head, *pts, kt, keep, backend="cuda")
+            hp, bp, stp = picp_kernel.linearize_plain(*head, *pts, kt, keep)
+            scale = float(hp.abs().max())
+            err = max(err, float((h - hp).abs().max()) / scale,
+                      float((b - bp).abs().max()) / max(float(bp.abs().max()), 1.0))
+            require(err <= K11_RTOL, f"K11 N={n}: H or b differs from the plain version by {err}")
+            require(int(st.num_inliers) == int(stp.num_inliers) and 0 < int(st.num_inliers) < n,
+                    f"K11 N={n}: inlier counts differ or the threshold split nothing")
+        params = picp_kernel.pack_params(*head[:1], head[2], head[1], 1e4, 0.0, 0.0, False, False,
+                                         0.0, k_inverse=False)
+        bound_ms, bound_by = bound(n * 6 * 4 + 40 * 4 + 45 * 4, n * ROUND_FLOPS[False])
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row[f"n{n}"] = dict(
+            ms=time_ms(lambda: picp_kernel.linearize(*head, *pts, 1e4, backend="cuda"), device,
+                       reps),
+            launch_ms=time_ms(lambda: picp_kernel._linearize_cuda(params, *pts), device, reps),
+            plain_ms=time_ms(lambda: picp_kernel.linearize_plain(*head, *pts, 1e4), device, 3),
+            bound_ms=bound_ms, bound_by=bound_by)
+    row.update(row["n8192"])
+    table["picp_linearize"] = row
+
+
 def read_launches(names, label: str, must: bool = True):
     from visual_odometry_tpu_torch.ops.kernels import _lib
 
@@ -521,8 +766,7 @@ def run_path_a(work_dir: str, device, require_launches: bool = True):
                     f"path A relocalize ({precision}) frame {f}: {err_t}, {err_r}")
         report["relocalize_" + precision] = [list(r) for r in rows]
     sync(device)
-    launches = read_launches([k for k in KERNELS if k != "picp_solve_se2"], "path A",
-                             require_launches)
+    launches = read_launches(PATH_A, "path A", require_launches)
     report["launches"] = launches
     print(json.dumps({"path_a": report}))
     return launches
@@ -778,6 +1022,207 @@ def run_step_form(camera, config, pts, apps, masks, device, frames: int = 18,
     return launches
 
 
+def run_path_e(camera, serving, device, require_launches: bool = True, reps: int = 3,
+               planar_count: int = 8):
+    """Serving at full width: 64 sequences x 128 frames x 128 slots (the shape
+    benchmarks/bench_pipeline.py serves, from synthetic data) through
+    run_sequences_batched, each sequence held against its own run_sequence;
+    then a planar batch of 8 on path D's kind of motion. ``serving`` maps
+    planar False/True to (config, the batch of ``serving_inputs``)."""
+    import torch
+
+    from visual_odometry_tpu_torch.models import pipeline
+    from visual_odometry_tpu_torch.ops import se3
+    from visual_odometry_tpu_torch.ops.kernels import _lib
+    from visual_odometry_tpu_torch.parallel import multiseq
+
+    report, launches = {}, {k: 0 for k in KERNELS}
+    mount = mount_matrix("cpu")
+    for planar in (False, True):
+        config, seqs = serving[planar]
+        if planar:
+            seqs = tuple(x[:planar_count].contiguous() for x in seqs)
+        count, n_frames, n_slots = seqs[0].shape[:3]
+        k8 = "track_frames_batched_planar" if planar else "track_frames_batched"
+        label = "path E planar" if planar else "path E"
+        _lib.reset_launches()
+        traj, maps, outs = multiseq.run_sequences_batched(camera, config, *seqs)
+        sync(device)
+        ran = read_launches(("match_pairs", "join_candidates", "gather_rows", k8), label,
+                            require_launches)
+        if require_launches:
+            want = {"match_pairs": 2, "join_candidates": 1, "gather_rows": 2, k8: 1,
+                    "track_frames": 0, "track_frames_planar": 0}
+            require(all(ran[k] == v for k, v in want.items()),
+                    f"{label}: K1-K3 must launch once a stage over the batch and K8 once: {ran}")
+        for k, v in ran.items():
+            launches[k] += v
+        require_tracked(outs, traj, n_slots, label)
+        err, single_s = 0.0, []
+        for i in range(count):
+            t0 = time.perf_counter()
+            t_i, m_i, _ = pipeline.run_sequence(camera, config, *(x[i] for x in seqs))
+            sync(device)
+            single_s.append(time.perf_counter() - t0)
+            err = max(err, float((traj[i] - t_i).abs().max()))
+            require(int(maps.count[i]) == int(m_i.count), f"{label}: sequence {i}'s map size")
+        require(err <= K4_POSE_TOL, f"{label}: a sequence is {err} from its own run_sequence")
+        if planar:
+            dev = max(se3.planar_deviation(traj[i].cpu(), mount) for i in range(count))
+            require(dev < PLANAR_DEV_TOL, f"{label}: planar-subgroup deviation {dev}")
+        seconds = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            multiseq.run_sequences_batched(camera, config, *seqs)
+            sync(device)
+            seconds.append(time.perf_counter() - t0)
+        frames = count * n_frames
+        serial = count * statistics.median(single_s)
+        report["planar" if planar else "se3"] = {
+            "sequences": count, "frames": n_frames, "slots": n_slots,
+            "traj_max_abs_err_vs_run_sequence": err,
+            "map_landmarks_mean": float(maps.count.float().mean()),
+            "inliers_mean": float(outs.num_inliers.float().mean()), "seconds": seconds,
+            "frames_per_s": frames / statistics.median(seconds),
+            "single_sequence_seconds_median": statistics.median(single_s),
+            "sequences_x_single_seconds": serial, "frames_per_s_serial": frames / serial,
+            "launches": ran}
+        print(f"{label} frames/s: {frames / statistics.median(seconds):.1f} batched, "
+              f"{frames / serial:.1f} as {count} x run_sequence ({count} sequences x "
+              f"{n_frames} frames x {n_slots} slots, median of {reps})")
+    report["launches"] = launches
+    print(json.dumps({"path_e": report}))
+    return launches
+
+
+def run_path_f(work_dir: str, device, ba_problem, require_launches: bool = True):
+    """Refinement: (1) path A's dataset through vo_complete with 5 refinement
+    iterations, sparse and dense, and the evaluation; (2) ``BA_STEPS`` steps of
+    sparse bundle adjustment at 512 poses x 100,000 landmarks, packed and
+    unpacked, under a fixed budget of ``BA_CG`` CG iterations (tolerance 0)."""
+    import torch
+
+    from visual_odometry_tpu_torch import apps
+    from visual_odometry_tpu_torch.ops.kernels import _lib
+    from visual_odometry_tpu_torch.parallel import sparse_ba
+    from visual_odometry_tpu_torch.utils import dataset_gen
+    from visual_odometry_tpu_torch.utils.config import DEFAULT_CONFIG
+
+    data = os.path.join(work_dir, "data_f")
+    dataset_gen.generate_dataset(data, num_frames=40, num_landmarks=400, seed=1)
+    report, launches = {}, {k: 0 for k in KERNELS}
+    results = {}
+    for backend in (None, "sparse", "dense"):
+        out = os.path.join(work_dir, "refine_" + str(backend))
+        config = DEFAULT_CONFIG if backend is None else DEFAULT_CONFIG.replace(
+            refine_iterations=5, refine_backend=backend)
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        apps.run_vo_complete(data, out, config, device=device, verbose=False)
+        sync(device)
+        seconds = time.perf_counter() - t0
+        ran = dict(_lib.launches)
+        for k, v in ran.items():
+            launches[k] += v
+        res = apps.run_evaluation(data, out, verbose=False)
+        results[backend] = res
+        report["vo_complete_" + (backend or "unrefined")] = dict(
+            check_accuracy(res, f"path F(1) {backend}"), seconds=seconds,
+            segment_sum_launches=ran["segment_sum"], take_table_launches=ran["take_table"])
+        if require_launches:
+            used = ran["segment_sum"] > 0 and ran["take_table"] > 0
+            require(used == (backend == "sparse"),
+                    f"path F(1) {backend}: K9/K10 launches {ran}")
+    # Bundle adjustment lowers the reprojection error. On this dataset the aligned
+    # position and map errors then move by a few percent either way (the map 5%
+    # down on one device and up on another): both must stay within 10%.
+    base = results[None]
+    for backend in ("sparse", "dense"):
+        for metric in ("rmse_position", "rmse_map"):
+            got, ref = getattr(results[backend], metric), getattr(base, metric)
+            require(got <= ref * 1.1, f"path F(1) {backend}: refinement took {metric} from "
+                                      f"{ref} to {got}, more than 10% up")
+    gap = abs(results["sparse"].rmse_position - results["dense"].rmse_position)
+    require(gap < 1e-3, f"path F(1): sparse and dense RMSE_position differ by {gap}")
+
+    k, problem, n_live = ba_problem
+    packed, degree = sparse_ba.pack_problem(problem)
+    require(degree is not None, "path F(2): the corridor did not pack")
+    for label, work, deg in (("packed", packed, degree), ("unpacked", problem, None)):
+        sparse_ba.sparse_ba_step(k, work, cg_iterations=2, cg_tolerance=0.0, lm_degree=deg)
+        sync(device)                                                    # warm-up
+        _lib.reset_launches()
+        chis, residuals = [], []
+        t0 = time.perf_counter()
+        for _ in range(BA_STEPS):
+            work, stats = sparse_ba.sparse_ba_step(k, work, cg_iterations=BA_CG, cg_tolerance=0.0,
+                                                   lm_degree=deg)
+            chis.append(stats.chi)
+            residuals.append(stats.cg_residual)
+        sync(device)
+        seconds = time.perf_counter() - t0
+        ran = dict(_lib.launches)
+        for name, v in ran.items():
+            launches[name] += v
+        chis = [float(c) for c in chis]
+        residuals = [float(r) for r in residuals]
+        # A step with i CG iterations: K10 = pose rows + i matvecs + the
+        # back-substitution, K9 = H_pp, b_p, the preconditioner's diagonal, the
+        # reduced right-hand side + i matvecs (parallel/sparse_ba.sparse_ba_step).
+        want = {"take_table": BA_STEPS * (2 + BA_CG), "segment_sum": BA_STEPS * (4 + BA_CG)}
+        if require_launches:
+            require(all(ran[name] == v for name, v in want.items()),
+                    f"path F(2) {label}: K9/K10 launched {ran}, reckoned {want}")
+        require(all(np.isfinite(chis)) and chis[-1] < chis[0],
+                f"path F(2) {label}: chi did not fall: {chis}")
+        require(all(np.isfinite(residuals)), f"path F(2) {label}: CG residual {residuals}")
+        require(bool(torch.isfinite(work.poses).all() and torch.isfinite(work.landmarks).all()),
+                f"path F(2) {label}: non-finite unknowns")
+        report["sparse_ba_" + label] = {
+            "poses": BA_POSES, "landmarks": BA_LANDMARKS, "observations": n_live,
+            "observation_slots": int(work.uv.shape[0]), "lm_steps": BA_STEPS,
+            "cg_iterations": BA_CG, "chi": chis, "cg_residual": residuals,
+            "ms_per_lm_step": 1e3 * seconds / BA_STEPS,
+            "segment_sum_launches": ran["segment_sum"], "take_table_launches": ran["take_table"]}
+        print(f"path F(2) sparse BA {label}: {1e3 * seconds / BA_STEPS:.1f} ms an LM step "
+              f"({BA_POSES} poses x {BA_LANDMARKS} landmarks, {n_live} observations, "
+              f"{BA_CG} CG iterations)")
+    report["launches"] = launches
+    print(json.dumps({"path_f": report}))
+    return launches
+
+
+def run_path_g(device, n: int = 8192, require_launches: bool = True, reps: int = 10):
+    """K11 through its public entry point on the workload of
+    benchmarks/bench_picp.py, beside ``ops.picp.linearize`` (plain tensor
+    operations on the card): other arithmetic for the same system, so H and b
+    are held to 1e-4 of their largest entry and the inlier count exactly."""
+    from visual_odometry_tpu_torch.ops import picp
+    from visual_odometry_tpu_torch.ops.kernels import _lib, picp_kernel
+
+    cam, pts = linearize_problem(n, device, seed=1)
+    head = (cam.camera_matrix, cam.world_in_camera, cam.params())
+    _lib.reset_launches()
+    h, b, st = picp_kernel.linearize(*head, *pts, 1e4)
+    sync(device)
+    launches = {k: _lib.launches[k] for k in KERNELS}
+    if require_launches:
+        require(launches["picp_linearize"] == 1, f"path G: K11 did not launch once: {launches}")
+    h2, b2, st2 = picp.linearize(cam, *pts, 1e4)
+    err_h = float((h - h2).abs().max()) / float(h2.abs().max())
+    err_b = float((b - b2).abs().max()) / float(b2.abs().max())
+    require(err_h < 1e-4 and err_b < 1e-4, f"path G: H {err_h}, b {err_b} from picp.linearize")
+    require(int(st.num_inliers) == int(st2.num_inliers), "path G: inlier counts differ")
+    kernel_ms = time_ms(lambda: picp_kernel.linearize(*head, *pts, 1e4), device, reps)
+    ops_ms = time_ms(lambda: picp.linearize(cam, *pts, 1e4), device, reps)
+    print(json.dumps({"path_g": {"n": n, "h_rel_err": err_h, "b_rel_err": err_b,
+                                 "inliers": int(st.num_inliers), "kernel_ms": kernel_ms,
+                                 "picp_linearize_ops_ms": ops_ms, "launches": launches}}))
+    print(f"path G linearization at N={n}: K11 {kernel_ms:.3f} ms, picp.linearize as tensor "
+          f"operations {ops_ms:.3f} ms (median of {reps})")
+    return launches
+
+
 def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1 << 20,
                  reps: int = 5) -> dict:
     """Stage times of run_sequence on path B's and path D's inputs and of
@@ -791,11 +1236,13 @@ def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1
     from torch.profiler import ProfilerActivity, profile
 
     from visual_odometry_tpu_torch.models import pipeline
+    from visual_odometry_tpu_torch.parallel import multiseq, sparse_ba
     from visual_odometry_tpu_torch.utils import profiling, synthetic
-    from visual_odometry_tpu_torch.utils.config import VOConfig
+    from visual_odometry_tpu_torch.utils.config import DEFAULT_CONFIG, VOConfig
 
     own = ("match_pairs", "join_candidates", "gather_rows", "track_frames", "picp_solve",
-           "best_match_scan", "best_match_fold")   # csrc/*.cu name their kernels <this>_kernel
+           "best_match_scan", "best_match_fold", "segment_sum", "take_table",
+           "picp_linearize")   # csrc/*.cu name their kernels <this>_kernel
 
     def measured(fn):
         with profiling.stage_times() as timer:
@@ -836,6 +1283,18 @@ def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1
     step = config.replace(scan_backend="step")
     head = tuple(x[:34] for x in seq_b)
     report["path_b_step_34_frames"] = measured(lambda: pipeline.run_sequence(camera, step, *head))
+    del seq_b, seq_d, head
+    # Path E: the serving batch; path F(2): one sparse-BA step in each layout.
+    seq_e = serving_inputs(SERVE_B, SERVE_FRAMES, SERVE_SLOTS, DEFAULT_CONFIG, device)
+    report["path_e"] = measured(
+        lambda: multiseq.run_sequences_batched(camera, DEFAULT_CONFIG, *seq_e))
+    del seq_e
+    k, problem, _ = corridor(device)
+    packed, degree = sparse_ba.pack_problem(problem)
+    for label, work, deg in (("packed", packed, degree), ("unpacked", problem, None)):
+        report["path_f_sparse_step_" + label] = measured(lambda: sparse_ba.sparse_ba_step(
+            k, work, cg_iterations=BA_CG, cg_tolerance=0.0, lm_degree=deg))
+    del problem, packed
     camera, map_state, frame, x0, _ = path_c_inputs(device, map_rows, slots)
     for precision in ("highest", "fast"):
         cfg = VOConfig(n_slots=slots, map_capacity=map_rows, gn_iterations=30,
@@ -865,7 +1324,7 @@ def main() -> int:
         _lib, frame_kernel, gather_kernel, matcher_kernel,
     )
     from visual_odometry_tpu_torch.utils import synthetic
-    from visual_odometry_tpu_torch.utils.config import VOConfig
+    from visual_odometry_tpu_torch.utils.config import DEFAULT_CONFIG, VOConfig
 
     device = torch.device("cuda")
     if sys.argv[1:] == ["--stages"]:
@@ -916,10 +1375,19 @@ def main() -> int:
     compare_solves(device, table)
     compare_matchers(device, table)
     torch.cuda.empty_cache()
+    serving = {}
+    for cfg in (DEFAULT_CONFIG, DEFAULT_CONFIG.with_planar_mount(mount_matrix("cpu").numpy())):
+        seqs = serving_inputs(SERVE_B, SERVE_FRAMES, SERVE_SLOTS, cfg, device)
+        compare_serving(camera, cfg, seqs, device, table)
+        serving[cfg.planar] = (cfg, seqs)
+    ba_problem = corridor(device)
+    compare_sparse_ba_kernels(ba_problem[1], device, table)
+    compare_linearize(device, table)
+    torch.cuda.empty_cache()
     print("kernels vs plain versions: all agree")
     phase("kernel phase", t0)
 
-    # ---- 4-9. the paths ----
+    # ---- 4-12. the paths ----
     work = os.path.join(ROOT, "build", "chip_smoke_work")
     shutil.rmtree(work, ignore_errors=True)
     launches = {}
@@ -942,6 +1410,16 @@ def main() -> int:
         t0 = time.perf_counter()
         launches["step"] = run_step_form(camera, config, pts, apps, masks, device)
         phase("step form", t0)
+        del pts, apps, masks, planar_seq
+        t0 = time.perf_counter()
+        launches["E"] = run_path_e(camera, serving, device)
+        phase("path E", t0)
+        t0 = time.perf_counter()
+        launches["F"] = run_path_f(work, device, ba_problem)
+        phase("path F", t0)
+        t0 = time.perf_counter()
+        launches["G"] = run_path_g(device)
+        phase("path G", t0)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -18,6 +18,8 @@ import torch
 from visual_odometry_tpu import apps as japps
 from visual_odometry_tpu.utils import dataset_gen as jdg
 from visual_odometry_tpu_torch import apps as tapps
+from visual_odometry_tpu_torch.models import refinement
+from visual_odometry_tpu_torch.models.landmark_map import LandmarkMap
 from visual_odometry_tpu_torch.ops import se3
 from visual_odometry_tpu_torch.utils import checkpoint, io
 
@@ -94,9 +96,9 @@ def test_run_relocalize_matches_jax(data_dir, tmp_path):
 
 
 def test_apps_default_to_the_card(data_dir, tmp_path):
-    """Without ``device`` the tracking commands and the checkpoint loader ask
-    for the CUDA card and raise on a host that has none, instead of running
-    on the CPU."""
+    """Without ``device`` the tracking commands, the checkpoint loader and
+    both refinement entry points ask for the CUDA card and raise on a host
+    that has none, instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
     for fn in (tapps.run_vo_se2, tapps.run_vo_da_known, tapps.run_relocalize):
@@ -106,3 +108,9 @@ def test_apps_default_to_the_card(data_dir, tmp_path):
     np.savez(path, trajectory=np.zeros((2, 4, 4), np.float32))
     with pytest.raises(RuntimeError, match="CUDA"):
         checkpoint.load_state(path)
+    traj = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    seq = (np.zeros((3, 8, 2), np.float32), np.zeros((3, 8, 10), np.float32),
+           np.zeros((3, 8), bool))
+    for fn in (refinement.refine_trajectory, refinement.refine_trajectory_sparse):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(np.eye(3, dtype=np.float32), traj, LandmarkMap.empty(16), *seq)

@@ -155,8 +155,9 @@ def test_config_mirrors_jax_fields_and_defaults():
         VOConfig(matcher_precision="bf16")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         VOConfig(num_chunks=4).check_supported()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VOConfig(refine_iterations=1).check_supported()
+    VOConfig(refine_iterations=1, refine_backend="sparse").check_supported()   # BA is ported
+    with pytest.raises(ValueError):
+        VOConfig(refine_backend="lm")
     mount = np.eye(4, dtype=np.float32)
     mount[0, 3] = 0.25
     planar = VOConfig().with_planar_mount(mount)

@@ -92,8 +92,41 @@ def test_kernel_library_lists_every_source_and_symbol():
         assert "vo_" + base in _lib._SIGNATURES, kernel
     mods = set(_modules())
     for new in ("ops.picp", "ops.picp_se2", "ops.linalg6", "ops.stats", "ops.kernels.picp_kernel",
-                "utils.checkpoint", "utils.timing", "utils.profiling"):
+                "utils.checkpoint", "utils.timing", "utils.profiling",
+                "ops.kernels.segsum_kernel", "parallel", "parallel.multiseq",
+                "parallel.sparse_ba", "parallel.bundle_adjustment", "models.refinement"):
         assert "visual_odometry_tpu_torch." + new in mods
+    for src in ("track_frames.cu", "picp_linearize.cu", "take_table.cu", "segment_sum.cu"):
+        assert src in _lib.SOURCES
+    for kernel in ("track_frames_batched", "track_frames_batched_planar", "segment_sum",
+                   "take_table", "picp_linearize"):
+        assert _lib.launches[kernel] == 0
+
+
+def test_chip_smoke_names_every_kernel():
+    """chip_smoke.KERNELS lists all eleven kernels of the JAX package (K4-K8
+    in both estimation groups, K7 in both precisions): every launch counter,
+    each with a source that is built and the TPU kernel it replaces."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    from visual_odometry_tpu_torch.ops.kernels import _lib
+
+    assert set(chip_smoke.KERNELS) == set(_lib.launches)
+    replaced = set()
+    for name, (source, replaces, path) in chip_smoke.KERNELS.items():
+        assert os.path.basename(source) in _lib.SOURCES, name
+        assert os.path.isfile(os.path.join(ROOT, source)), name
+        tpu_file, line = replaces.split(":")
+        with open(os.path.join(ROOT, tpu_file)) as fh:
+            assert int(line) <= len(fh.readlines()), name
+        replaced.add(replaces)
+        assert path in "ABCDEFG", name
+    # Eleven kernels; K6 has two call sites (solve_fused, solve_se2_fused), and
+    # the planar K5 and K8 are named by their GN loops' lines.
+    assert len(replaced) == 13
 
 
 def test_stage_times_samples_the_entry_points_own_steps():

@@ -267,3 +267,81 @@ def test_se2_chart_linalg_and_stats_match_jax():
         vec, jvec = fn(cov).numpy(), np.asarray(jfn(jcov))
         sign = np.sign((vec * jvec).sum(-1, keepdims=True))   # an eigenvector's sign is free
         np.testing.assert_allclose(vec, sign * jvec, atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# K11: one linearization
+# --------------------------------------------------------------------------
+
+
+def _linearize_case(n, seed=0):
+    """tests/test_pallas_kernels.py:64-96: a pose far from convergence, so H
+    and b are both large, against exact measurements."""
+    rng = np.random.default_rng(seed)
+    world = jsyn.generate_points3d(rng, n)
+    pose = np.asarray(jse3.v2t_euler(jnp.asarray(np.float32([0.2, -0.1, 0.3, 0.05, -0.08, 0.02]))))
+    meas, valid = jproject(jsyn.default_camera(np.eye(4, dtype=np.float32)), jnp.asarray(world))
+    return np.array(world), np.array(meas), np.array(valid, np.float32), pose
+
+
+def _both_linearize(world, meas, w, pose, kt, keep_outliers):
+    jcam, tcam = jsyn.default_camera(pose), tsyn.default_camera(pose)
+    ref = jkernel.linearize_pallas(
+        jcam.camera_matrix, jcam.world_in_camera,
+        jnp.asarray([float(jcam.z_near), float(jcam.z_far), float(jcam.cols), float(jcam.rows)],
+                    jnp.float32),
+        jnp.asarray(world), jnp.asarray(meas), jnp.asarray(w), jnp.float32(kt),
+        keep_outliers=keep_outliers, interpret=True)
+    got = picp_kernel.linearize(tcam.camera_matrix, tcam.world_in_camera, tcam.params(),
+                                *_t(world, meas, w), kt, keep_outliers)
+    return got, ref, tcam
+
+
+@pytest.mark.parametrize("n", [100, 300, 1000])
+@pytest.mark.parametrize("keep_outliers,kt", [(False, 1e4), (True, 400.0), (False, 400.0)])
+def test_linearize_plain_matches_jax_kernel(n, keep_outliers, kt):
+    """K11's plain version against ``linearize_pallas(interpret=True)``: H and
+    b within 1e-5 of the system's largest entry, the stats as _close_stats
+    holds them; and against the port's own ``picp.linearize``."""
+    world, meas, w, pose = _linearize_case(n)
+    (h, b, st), (jh, jb, jst), tcam = _both_linearize(world, meas, w, pose, kt, keep_outliers)
+    assert h.shape == (6, 6) and b.shape == (6,) and st.num_inliers.dtype == torch.int32
+    assert torch.equal(h, h.T)
+    _close_system(h, b, jh, jb)
+    _close_stats(st, jst)
+    h2, b2, st2 = picp.linearize(tcam, *_t(world, meas, w), kt, keep_outliers)
+    _close_system(h, b, h2.numpy(), b2.numpy())
+    _close_stats(st, st2)
+    if kt < 1e4:
+        assert 0 < int(st.num_inliers) < int(w.sum())   # the kernel threshold split the points
+
+
+def test_linearize_restores_the_near_depth_guard():
+    """A point a tenth of a micrometre in front of the pinhole under the pose
+    linearized at (``hz`` ~ 1e-7, inside the frustum test): the TPU kernel
+    lets its 1/z^2 terms into H, the port
+    follows ``picp.linearize`` and drops it. The difference is the guard and
+    nothing else: without that point both agree."""
+    world, meas, w, pose = _linearize_case(100)
+    world[0] = pose[:3, :3].T @ (np.float32([0.0, 0.0, 1e-7]) - pose[:3, 3])
+    meas[0] = (320.0, 240.0)       # K's principal point: the projection of any (0, 0, z)
+    w[0] = 1.0
+    (h, b, st), (jh, _, jst), tcam = _both_linearize(world, meas, w, pose, 1e4, False)
+    h2, b2, st2 = picp.linearize(tcam, *_t(world, meas, w), 1e4, False)
+    _close_system(h, b, h2.numpy(), b2.numpy())
+    assert int(st.num_inliers) == int(st2.num_inliers) == int(jst.num_inliers) - 1
+    assert float(np.abs(np.asarray(jh)).max()) > 1e6 * float(h.abs().max())
+    w[0] = 0.0
+    (h, b, st), (jh, jb, jst), _ = _both_linearize(world, meas, w, pose, 1e4, False)
+    _close_system(h, b, jh, jb)
+    _close_stats(st, jst)
+
+
+def test_linearize_wrapper_never_falls_back():
+    world, meas, w, pose = _linearize_case(50)
+    tcam = tsyn.default_camera(pose)
+    args = (tcam.camera_matrix, tcam.world_in_camera, tcam.params(), *_t(world, meas, w), 1e4)
+    with pytest.raises(ValueError, match="CUDA"):
+        picp_kernel.linearize(*args, backend="cuda")
+    a, b = picp_kernel.linearize(*args), picp_kernel.linearize_plain(*args)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

@@ -6,16 +6,27 @@ Pallas interpreter (scan_backend="fused_interpret", matcher_backend=
 CPU default is the scan path.
 
 Tolerances: the map's membership and slot order, match counts and inlier
-counts are exact. Poses: 1e-4 against the fused interpreter from a shared
-bootstrap pose; 1e-2 when each package runs its own 8-point bootstrap (the
-f32 null vector of the 9x9 normal matrix differs between eigh
-implementations at ~1e-3, ops/epipolar._null_vector, and the chain carries
-it); 2e-3 on relative motions against the scan path (the repo's own
-fused-vs-scan tolerance, tests/test_pipeline.py:331).
+counts are exact. Poses: 1e-4 against the fused interpreter, from a shared
+bootstrap pose and with each package running its own 8-point bootstrap; 2e-3
+on relative motions against the scan path (the repo's own fused-vs-scan
+tolerance, tests/test_pipeline.py:331).
+
+The 8-point bootstrap. The port forms the 9x9 normal matrix and its null
+vector in float64 (ops/epipolar.estimate_fundamental): in float32 the
+matrix's two smallest eigenvalues are closer than its rounding error on these
+scenes, so the float32 pose is rounding noise at the 1e-2 level (the JAX
+package's own value moves that far between its eager and its jitted
+evaluation, test_float32_bootstrap_is_rounding_noise). "Its own bootstrap" on
+the JAX side is therefore the JAX package's own ``estimate_transform``
+evaluated in float64 (:func:`jax_bootstrap_in_double`), which the port then
+meets at 1e-6 and the tracked chain at 1e-4.
 """
+
+import contextlib
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -47,6 +58,38 @@ def jax_run(sequence):
     return np.asarray(traj), m, outs
 
 
+@contextlib.contextmanager
+def jax_bootstrap_in_double():
+    """Inside, the JAX pipeline's 8-point ``estimate_transform`` runs in
+    float64 on the same float32 inputs and hands back a float32 pose; nothing
+    else of the JAX program changes. Traces made before and inside are
+    dropped, since they hold the function they were traced with."""
+    float32_form = jpipe.epipolar.estimate_transform
+
+    def in_double(*args):
+        up = [a.astype(jnp.float64) if jnp.issubdtype(a.dtype, jnp.floating) else a for a in args]
+        return float32_form(*up).astype(jnp.float32)
+
+    jax.clear_caches()
+    jpipe.epipolar.estimate_transform = in_double
+    try:
+        with jax.enable_x64(True):
+            yield
+    finally:
+        jpipe.epipolar.estimate_transform = float32_form
+        jax.clear_caches()
+
+
+@pytest.fixture(scope="module")
+def jax_run_double_bootstrap(sequence):
+    cfg = JaxConfig(n_slots=S, map_capacity=512, scan_backend="fused_interpret",
+                    matcher_backend="pairs_pallas_interpret")
+    with jax_bootstrap_in_double():
+        traj, m, outs = jpipe.run_sequence(jsyn.deep_camera(), cfg,
+                                           *(jnp.asarray(x) for x in sequence))
+        return np.asarray(traj), m, outs
+
+
 def _port_run(sequence):
     return tpipe.run_sequence(tsyn.deep_camera(), VOConfig(n_slots=S, map_capacity=512),
                               *(torch.from_numpy(x) for x in sequence))
@@ -76,12 +119,26 @@ def test_run_sequence_matches_jax_fused_shared_bootstrap(sequence, jax_run, monk
     assert (np.abs(port[1].points.numpy() - pts_ref) <= 1e-3 * (1 + np.abs(pts_ref))).all()
 
 
-def test_run_sequence_matches_jax_fused(sequence, jax_run):
-    """Each package with its own bootstrap: poses within 1e-2, the map's
-    landmarks and order and every count exact."""
+def test_run_sequence_matches_jax_fused(sequence, jax_run_double_bootstrap):
+    """Each package with its own bootstrap (the JAX package's evaluated in
+    float64, module docstring): the bootstrap pose within 1e-6, every tracked
+    pose within 1e-4, the map's landmarks and order and every count exact."""
     port = _port_run(sequence)
-    np.testing.assert_allclose(port[0].numpy(), jax_run[0], atol=1e-2)
-    _check_map_and_counts(port, jax_run)
+    ref = jax_run_double_bootstrap
+    np.testing.assert_allclose(port[0][1].numpy(), ref[0][1], atol=1e-6)
+    np.testing.assert_allclose(port[0].numpy(), ref[0], atol=1e-4)
+    _check_map_and_counts(port, ref)
+
+
+def test_float32_bootstrap_is_rounding_noise(sequence, jax_run, jax_run_double_bootstrap):
+    """Why the port does not follow the JAX package's float32 8-point pose: on
+    this scene (64 exact correspondences) the JAX float32 value is further
+    than 1e-3 from the same function's float64 value (measured 1.6e-2), and
+    the port's is within 1e-6 of the latter."""
+    float32_pose, float64_pose = jax_run[0][1], jax_run_double_bootstrap[0][1]
+    assert np.abs(float32_pose - float64_pose).max() > 1e-3
+    port_pose = _port_run(sequence)[0][1].numpy()
+    assert np.abs(port_pose - float64_pose).max() < 1e-6
 
 
 def test_fused_join_depth_overflow_raises(rng, monkeypatch):
@@ -120,11 +177,10 @@ def test_check_bootstrap_raises_below_eight_matches():
     f = tpipe.FrameData(pts, apps, mask, ids)
     with pytest.raises(tpipe.BootstrapError):
         tpipe.check_bootstrap(VOConfig(n_slots=S), f, f)
-    for unported in (dict(num_chunks=2), dict(refine_iterations=5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpipe.run_sequence(tsyn.default_camera(), VOConfig(n_slots=S, **unported),
-                               pts[None].expand(3, S, 2), apps[None].expand(3, S, 10),
-                               mask[None].expand(3, S))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpipe.run_sequence(tsyn.default_camera(), VOConfig(n_slots=S, num_chunks=2),
+                           pts[None].expand(3, S, 2), apps[None].expand(3, S, 10),
+                           mask[None].expand(3, S))
 
 
 def _relative(poses):

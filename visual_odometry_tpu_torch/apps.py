@@ -25,8 +25,9 @@ import numpy as np
 import torch
 
 from . import default_device
-from .models import pipeline
+from .models import pipeline, refinement
 from .models.landmark_map import compact
+from .models.refinement import absolute_from_relative
 from .ops.camera import Camera
 from .utils import evaluation as eval_mod
 from .utils import io
@@ -60,17 +61,6 @@ def _check_bootstrap(config: VOConfig, pts, apps, mask, ids, use_known_da: bool 
         pipeline.FrameData(pts[1], apps[1], mask[1], ids[1]), use_known_da)
 
 
-def absolute_from_relative(relative: np.ndarray) -> np.ndarray:
-    """[X_0..X_{F-1}] relative poses -> A_f (camera from frame 0), A_0 = X_0 = I,
-    accumulated in float64."""
-    out = np.zeros_like(relative)
-    acc = np.eye(4, dtype=np.float64)
-    for f in range(len(relative)):
-        acc = relative[f].astype(np.float64) @ acc
-        out[f] = acc
-    return out.astype(np.float32)
-
-
 def run_vo_complete(
     data_dir: str,
     out_dir: str = ".",
@@ -78,9 +68,12 @@ def run_vo_complete(
     verbose: bool = True,
     device=None,
 ):
-    """Full VO with appearance-based DA (vo_complete.cpp:68-186), one chunk, no
-    refinement; SE(3), or planar when ``config.planar``. ``device`` defaults
-    to the CUDA card.
+    """Full VO with appearance-based DA (vo_complete.cpp:68-186), one chunk;
+    SE(3), or planar when ``config.planar``. With ``config.refine_iterations
+    > 0`` the tracked trajectory and map are bundle-adjusted before they are
+    written (``models/refinement``: ``refine_backend`` ``dense`` or
+    ``sparse``), outside the timed tracking. ``device`` defaults to the CUDA
+    card.
 
     Returns (trajectory (F, 4, 4) numpy, map, per-frame outputs, seconds).
     """
@@ -102,7 +95,15 @@ def run_vo_complete(
     trajectory = trajectory.cpu().numpy()   # waits for the device
     elapsed = time.perf_counter() - t0
 
-    map_pts, map_apps = compact(map_state)
+    if config.refine_iterations > 0:
+        refine = (refinement.refine_trajectory_sparse if config.refine_backend == "sparse"
+                  else refinement.refine_trajectory)
+        trajectory, map_pts, map_apps, _ = refine(
+            params.camera_matrix, trajectory, map_state, seq.points, seq.appearances, seq.mask,
+            num_iterations=config.refine_iterations, damping=config.refine_damping,
+            kernel_threshold=config.kernel_threshold, device=device)
+    else:
+        map_pts, map_apps = compact(map_state)
     h = params.cam_in_robot
     map_robot = map_pts @ h[:3, :3].T + h[:3, 3]       # map = H * map (vo_complete.cpp:181)
     io.write_vectors(os.path.join(out_dir, "map.txt"), map_robot)

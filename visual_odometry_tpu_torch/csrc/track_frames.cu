@@ -1,5 +1,6 @@
 // K4 and K5: the whole tracked-frame loop of one sequence in one launch, for
-// the SE(3) estimation group (K4) and the planar one (K5, est_SE2).
+// the SE(3) estimation group (K4) and the planar one (K5, est_SE2). K8: the
+// same loop over N independent sequences in one launch, both groups.
 //
 // Replaces visual_odometry_tpu/ops/pallas/frame_kernel.py:track_frames_fused
 // (_run_batched, body _kernel) with picp_kernel.py:gn_loop inside, and the same
@@ -34,6 +35,21 @@
 // (ops/kernels/frame_kernel.track_frames_plain) also adds the lane sums in
 // the kernel's order, takes a correctly rounded sqrt and takes sin/cos from
 // the card's libm, so the two agree bit for bit on the card.
+//
+// K8 replaces frame_kernel.py:track_frames_fused_serving (body _kernel_serving)
+// with picp_kernel.py:gn_loop_batched / gn_loop_se2_batched inside. The TPU
+// kernel lock-steps a group of sequences on the sublane axis of every tile and
+// freezes the converged ones, because a TPU core runs grid rows one after
+// another. Here blockIdx.x is the sequence: the N CTAs run side by side on the
+// card's SMs, each leaves its GN loop when its own sequence has converged, and
+// nothing is shared between them but the camera and the knobs. Every
+// per-sequence array carries a leading sequence axis, contiguous, and the
+// start poses come as an (N, 12) array beside the shared parameter row. K4 and
+// K5 are the same __global__ at N = 1 with the start pose read from the row,
+// so a sequence's result in a batch equals its single launch bit for bit. The
+// bound is K4's chain of dependent rounds, per sequence; the batch fills the
+// card while N <= the CTAs that fit at once (one per SM at S = 1024, several
+// at S = 128).
 #include "gn_loop.cuh"
 
 #define DET_EPS 1e-12f
@@ -43,9 +59,12 @@
 // params: [z_near, z_far, cols, rows, kt, keep_outliers, damping, tol,
 //          warm_start, min_num_inliers, K (9), K^-1 (9), initial pose 3x4 (12)]
 // and, when PLANAR, the camera mount [R|t] (12) and its inverse (12).
+// pose0: (gridDim.x, 12) start poses; the single-sequence entries pass the
+// row's own slot, params + 28.
 template <bool PLANAR>
 __global__ void __launch_bounds__(1024)
-    track_frames_kernel(const float* __restrict__ params, const float* __restrict__ init_tri,
+    track_frames_kernel(const float* __restrict__ params, const float* __restrict__ pose0,
+                        const float* __restrict__ init_tri,
                         const uint8_t* __restrict__ init_ok, const int* __restrict__ cand_idx,
                         const uint8_t* __restrict__ cand_ok, const float* __restrict__ prev_al,
                         const float* __restrict__ cur_al, const uint8_t* __restrict__ corr_valid,
@@ -61,9 +80,27 @@ __global__ void __launch_bounds__(1024)
   const int j = threadIdx.x;
   const bool in_range = j < s;
 
+  // This CTA's sequence: every per-sequence array is (sequences, ...) contiguous.
+  {
+    const long long seq = blockIdx.x;
+    const long long fs_all = static_cast<long long>(frames) * s;
+    pose0 += seq * 12;
+    init_tri += seq * 3 * s;
+    init_ok += seq * s;
+    cand_idx += seq * fs_all * depth;
+    cand_ok += seq * fs_all * depth;
+    prev_al += seq * fs_all * 2;
+    cur_al += seq * fs_all * 2;
+    corr_valid += seq * fs_all;
+    poses += seq * frames * 16;
+    tri_out += seq * fs_all * 3;
+    tri_ok_out += seq * fs_all;
+    stats += seq * frames * 4;
+  }
+
   if (j < NPAR) s_par[j] = params[j];
+  if (j < 12) s_cpose[j] = pose0[j];
   __syncthreads();
-  if (j < 12) s_cpose[j] = s_par[28 + j];
   if (in_range) {
     const bool ok0 = init_ok[j] != 0;
     tri_buf[4 * j + 0] = init_tri[3 * j + 0];
@@ -128,12 +165,12 @@ __global__ void __launch_bounds__(1024)
     const float gmx = have ? u2 : 0.0f, gmy = have ? v2 : 0.0f;
 
     if (j == 0) {
-      float pose0[12];
+      float start[12];
       for (int q = 0; q < 12; ++q) {
         const float eye = (q == 0 || q == 5 || q == 10) ? 1.0f : 0.0f;
-        pose0[q] = warm > 0.5f ? s_cpose[q] : eye;
+        start[q] = warm > 0.5f ? s_cpose[q] : eye;
       }
-      gn_init(&s_gn, pose0);
+      gn_init(&s_gn, start);
     }
     // The barrier also publishes the initial GN state written above.
     const int n_weight = __syncthreads_count(have);
@@ -209,12 +246,13 @@ __global__ void __launch_bounds__(1024)
 }
 
 template <bool PLANAR>
-static int launch_track_frames(const float* params, const float* init_tri, const uint8_t* init_ok,
+static int launch_track_frames(int sequences, const float* params, const float* pose0,
+                               const float* init_tri, const uint8_t* init_ok,
                                const int* cand_idx, const uint8_t* cand_ok, const float* prev_al,
                                const float* cur_al, const uint8_t* corr_valid, float* poses,
                                float* tri_out, uint8_t* tri_ok_out, float* stats, int frames, int s,
                                int depth, int num_iterations, int min_iterations, void* stream) {
-  if (frames <= 0) return 0;
+  if (frames <= 0 || sequences <= 0) return 0;
   if (s < 1 || s > 1024 || depth < 1) return static_cast<int>(cudaErrorInvalidValue);
   int threads = ((s + 31) / 32) * 32;
   if (threads < 64) threads = 64;  // threads 0..63 stage the parameters
@@ -223,8 +261,8 @@ static int launch_track_frames(const float* params, const float* init_tri, const
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  track_frames_kernel<PLANAR><<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      params, init_tri, init_ok, cand_idx, cand_ok, prev_al, cur_al, corr_valid, poses, tri_out,
+  track_frames_kernel<PLANAR><<<sequences, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      params, pose0, init_tri, init_ok, cand_idx, cand_ok, prev_al, cur_al, corr_valid, poses, tri_out,
       tri_ok_out, stats, frames, s, depth, num_iterations, min_iterations);
   return vo_launch_status();
 }
@@ -235,7 +273,7 @@ VO_EXPORT int vo_track_frames(const float* params, const float* init_tri, const 
                               const float* cur_al, const uint8_t* corr_valid, float* poses,
                               float* tri_out, uint8_t* tri_ok_out, float* stats, int frames, int s,
                               int depth, int num_iterations, int min_iterations, void* stream) {
-  return launch_track_frames<false>(params, init_tri, init_ok, cand_idx, cand_ok, prev_al, cur_al,
+  return launch_track_frames<false>(1, params, params + 28, init_tri, init_ok, cand_idx, cand_ok, prev_al, cur_al,
                                     corr_valid, poses, tri_out, tri_ok_out, stats, frames, s, depth,
                                     num_iterations, min_iterations, stream);
 }
@@ -248,7 +286,37 @@ VO_EXPORT int vo_track_frames_planar(const float* params, const float* init_tri,
                                      float* tri_out, uint8_t* tri_ok_out, float* stats, int frames,
                                      int s, int depth, int num_iterations, int min_iterations,
                                      void* stream) {
-  return launch_track_frames<true>(params, init_tri, init_ok, cand_idx, cand_ok, prev_al, cur_al,
+  return launch_track_frames<true>(1, params, params + 28, init_tri, init_ok, cand_idx, cand_ok, prev_al, cur_al,
                                    corr_valid, poses, tri_out, tri_ok_out, stats, frames, s, depth,
                                    num_iterations, min_iterations, stream);
+}
+
+// K8: N sequences, one CTA each. params is K4's row (its pose slot is not
+// read); pose0 (N, 12); the other arrays as K4's with a leading sequence axis.
+VO_EXPORT int vo_track_frames_batched(const float* params, const float* pose0,
+                                      const float* init_tri, const uint8_t* init_ok,
+                                      const int* cand_idx, const uint8_t* cand_ok,
+                                      const float* prev_al, const float* cur_al,
+                                      const uint8_t* corr_valid, float* poses, float* tri_out,
+                                      uint8_t* tri_ok_out, float* stats, int sequences, int frames,
+                                      int s, int depth, int num_iterations, int min_iterations,
+                                      void* stream) {
+  return launch_track_frames<false>(sequences, params, pose0, init_tri, init_ok, cand_idx, cand_ok,
+                                    prev_al, cur_al, corr_valid, poses, tri_out, tri_ok_out, stats,
+                                    frames, s, depth, num_iterations, min_iterations, stream);
+}
+
+// K8 planar: params is K5's row of 64 floats.
+VO_EXPORT int vo_track_frames_batched_planar(const float* params, const float* pose0,
+                                             const float* init_tri, const uint8_t* init_ok,
+                                             const int* cand_idx, const uint8_t* cand_ok,
+                                             const float* prev_al, const float* cur_al,
+                                             const uint8_t* corr_valid, float* poses,
+                                             float* tri_out, uint8_t* tri_ok_out, float* stats,
+                                             int sequences, int frames, int s, int depth,
+                                             int num_iterations, int min_iterations,
+                                             void* stream) {
+  return launch_track_frames<true>(sequences, params, pose0, init_tri, init_ok, cand_idx, cand_ok,
+                                   prev_al, cur_al, corr_valid, poses, tri_out, tri_ok_out, stats,
+                                   frames, s, depth, num_iterations, min_iterations, stream);
 }

@@ -469,24 +469,34 @@ def _run(camera: Camera, config: VOConfig, points, appearances, masks, ids,
     x_init, outs, init_tri = _track(camera, config, points, appearances, masks, ids,
                                     use_known_da)
 
-    # Map fold (vo_complete.cpp:175-176): chains[j] maps frame j+1 coords to
-    # frame 0, the running product of inverse relative poses.
     with stage("chains_and_transform"):
-        inv_poses = se3.inverse(outs.pose)
-        chains = se3.chain_products(
-            torch.cat([se3.inverse(x_init)[None], inv_poses[:-1]], dim=0))
-        tri_world = se3.transform_points(chains, outs.tri_points)
-    d = appearances.shape[-1]
+        tri_world = _tri_in_frame0(x_init, outs)
     with stage("map_fold"):
-        final_map = landmark_map.merge_stream(
-            torch.cat([init_tri.points, tri_world.reshape(-1, 3)]),
-            torch.cat([init_tri.apps, outs.tri_apps.reshape(-1, d)]),
-            torch.cat([init_tri.valid, outs.tri_valid.reshape(-1)]),
-            config.map_capacity,
-        )
+        final_map = _fold_map(config, init_tri, tri_world, outs)
     eye = torch.eye(4, dtype=points.dtype, device=points.device)
     trajectory = torch.cat([eye[None], x_init[None], outs.pose], dim=0)
     return trajectory, final_map, outs
+
+
+def _tri_in_frame0(x_init: torch.Tensor, outs: FrameOutput) -> torch.Tensor:
+    """One sequence's triangulations in frame-0 coordinates
+    (vo_complete.cpp:175-176): chains[j] maps frame j+1 coords to frame 0,
+    the running product of inverse relative poses."""
+    inv_poses = se3.inverse(outs.pose)
+    chains = se3.chain_products(torch.cat([se3.inverse(x_init)[None], inv_poses[:-1]], dim=0))
+    return se3.transform_points(chains, outs.tri_points)
+
+
+def _fold_map(config: VOConfig, init_tri, tri_world: torch.Tensor, outs: FrameOutput):
+    """One sequence's map: the bootstrap triangulation, then every tracked
+    frame's, folded in insertion order."""
+    d = outs.tri_apps.shape[-1]
+    return landmark_map.merge_stream(
+        torch.cat([init_tri.points, tri_world.reshape(-1, 3)]),
+        torch.cat([init_tri.apps, outs.tri_apps.reshape(-1, d)]),
+        torch.cat([init_tri.valid, outs.tri_valid.reshape(-1)]),
+        config.map_capacity,
+    )
 
 
 def run_sequence(

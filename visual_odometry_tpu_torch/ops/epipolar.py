@@ -6,6 +6,14 @@ iteration, rank-2 projection), E = K^T F K, the two SVD rotation candidates
 with both translation signs, and the cheirality vote
 (epipolar_utils.cpp:103-213). Eigenvector and singular-vector signs may
 differ from JAX's; the candidate set and hence the chosen pose do not.
+
+The normal matrix of the 8-point system and its null vector are taken in
+float64, unlike the JAX package's (a TPU has no float64). At a baseline of a
+hundredth of the depth the matrix's two smallest eigenvalues lie closer
+together than float32 rounds its entries, so a float32 null vector is rounding
+noise: the pose moves by 1e-2 to 1e-1 with the eigensolver and the order of
+the sums, and on a third of 128-slot fields the track then loses inliers. The
+float64 form is within 1e-6 of the JAX function evaluated in float64.
 """
 
 from __future__ import annotations
@@ -62,8 +70,9 @@ def estimate_fundamental(idx1, idx2, corr_valid, p1_img, p2_img, mask1, mask2) -
     ones = torch.ones(idx1.shape + (1,), dtype=p1_img.dtype, device=p1_img.device)
     d1 = torch.cat([p1n[idx1.long()], ones], -1)
     d2 = torch.cat([p2n[idx2.long()], ones], -1)
-    rows = _design_rows(d1, d2, corr_valid)
-    f_approx = _null_vector(rows.T @ rows).reshape(3, 3)
+    # float64 from here to the null vector: float32 is too coarse (module docstring)
+    rows = _design_rows(d1, d2, corr_valid).double()
+    f_approx = _null_vector(rows.T @ rows).to(p1_img.dtype).reshape(3, 3)
     u, s, vt = torch.linalg.svd(f_approx, full_matrices=True)
     s = torch.cat([s[:2], torch.zeros_like(s[2:])])
     f = (u * s) @ vt

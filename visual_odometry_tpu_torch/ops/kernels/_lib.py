@@ -32,7 +32,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "vo_torch_kernels"
 SOURCES = ("match_pairs.cu", "join_candidates.cu", "gather_rows.cu", "track_frames.cu",
-           "picp_solve.cu", "best_match.cu")
+           "picp_solve.cu", "best_match.cu", "picp_linearize.cu", "take_table.cu",
+           "segment_sum.cu")
 HEADERS = ("common.cuh", "gn_loop.cuh")
 # --fmad=false: no multiply-add contraction, so kernel arithmetic rounds like
 # the plain versions' separate PyTorch ops (see csrc/common.cuh).
@@ -47,6 +48,8 @@ launches = {
     "match_pairs": 0, "join_candidates": 0, "gather_rows": 0, "track_frames": 0,
     "track_frames_planar": 0, "picp_solve": 0, "picp_solve_se2": 0,
     "best_match": 0, "best_match_fast": 0,
+    "track_frames_batched": 0, "track_frames_batched_planar": 0,
+    "segment_sum": 0, "take_table": 0, "picp_linearize": 0,
 }
 
 
@@ -157,6 +160,11 @@ _SIGNATURES = {
     "vo_picp_solve": [_P] * 6 + [_I] * 3 + [_P],
     "vo_picp_solve_se2": [_P] * 6 + [_I] * 3 + [_P],
     "vo_best_match": [_P] * 7 + [_I] * 5 + [_P],
+    "vo_track_frames_batched": [_P] * 13 + [_I] * 6 + [_P],
+    "vo_track_frames_batched_planar": [_P] * 13 + [_I] * 6 + [_P],
+    "vo_segment_sum": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+    "vo_take_table": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+    "vo_picp_linearize": [_P] * 5 + [_I, _P],
 }
 
 _lib = None

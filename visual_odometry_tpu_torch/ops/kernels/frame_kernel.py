@@ -1,5 +1,5 @@
 """K2 (world-join candidate chains), K4 and K5 (the fused tracked-frame loop,
-SE(3) and planar).
+SE(3) and planar) and K8 (that loop over a batch of sequences in one launch).
 
 Replaces ``visual_odometry_tpu/ops/pallas/frame_kernel.py``:
 ``join_candidates`` -> ``csrc/join_candidates.cu`` and ``track_frames_fused``
@@ -16,6 +16,16 @@ small solve on float32 scalars on the host with a correctly rounded sqrt and
 sin/cos taken on the lanes' device. With the library built --fmad=false the
 two agree bit for bit on the card; any last-ulp difference would otherwise
 grow to ~1e-3 over hundreds of frames through the monocular chain.
+
+K8 (:func:`track_frames_batched`) replaces ``track_frames_fused_serving`` with
+``gn_loop_batched``/``gn_loop_se2_batched`` inside: N independent sequences,
+one shared camera and one set of knobs, one CTA per sequence of the same
+``__global__`` as K4/K5, so a sequence's result equals its single launch bit
+for bit. Not carried over from the TPU design: ``inner_batch`` and the sublane
+lock-step with frozen converged sequences (a CTA simply leaves its loop), the
+``(G, F, 5, B, S)`` transposes, the frame blocking and its zero-validity
+padding frames, and ``interpret``. Its plain version is a loop of
+:func:`track_frames_plain` over the sequences.
 """
 
 from __future__ import annotations
@@ -304,75 +314,82 @@ def _block_sum(rows: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _gn_lane_rows(par, pose, wx, wy, wz, mx, my, wgt, planar: bool = False) -> torch.Tensor:
+    """One GN round's lane terms under ``pose`` (csrc/gn_loop.cuh
+    gn_point_terms): (30, N) rows for SE(3) — H's upper triangle row-major, b,
+    chi_in, chi_out, n_in — or (12, N) planar, whose Jacobian is the conjugated
+    SE(2) one (picp_kernel.py:680-706); projection and robust kernel are shared."""
+    z_near, z_far, cols, rows, kt, keep_out = par[0:6]
+    k = par[10:19]
+    keep_out = float(keep_out)
+    r00, r01, r02, t0, r10, r11, r12, t1, r20, r21, r22, t2 = pose
+    px = r00 * wx + r01 * wy + r02 * wz + t0
+    py = r10 * wx + r11 * wy + r12 * wz + t1
+    pz = r20 * wx + r21 * wy + r22 * wz + t2
+    hx = k[0] * px + k[1] * py + k[2] * pz
+    hy = k[3] * px + k[4] * py + k[5] * pz
+    hz = k[6] * px + k[7] * py + k[8] * pz
+    iz = 1.0 / torch.where(hz == 0.0, 1.0, hz)
+    u = hx * iz
+    v = hy * iz
+    valid = (
+        (pz <= z_far) & (pz >= z_near) & (hz > 1e-6)
+        & (u >= 0.0) & (u <= cols - 1.0) & (v >= 0.0) & (v <= rows - 1.0)
+    )
+    ex = u - mx
+    ey = v - my
+    chi = ex * ex + ey * ey
+    is_out = chi > kt
+    lam = torch.where(is_out, _sqrt(kt / torch.clamp_min(chi, 1e-30)), 1.0)
+    live = wgt * valid.to(torch.float32)
+    w = live * torch.where(is_out, keep_out, 1.0) * lam
+    iz2 = iz * iz
+    a00 = k[0] * iz - k[6] * hx * iz2
+    a01 = k[1] * iz - k[7] * hx * iz2
+    a02 = k[2] * iz - k[8] * hx * iz2
+    a10 = k[3] * iz - k[6] * hy * iz2
+    a11 = k[4] * iz - k[7] * hy * iz2
+    a12 = k[5] * iz - k[8] * hy * iz2
+    if planar:
+        c = par[40:52]
+        qx = c[0] * px + c[1] * py + c[2] * pz + c[3]
+        qy = c[4] * px + c[5] * py + c[6] * pz + c[7]
+        ctx = tuple(qx * b - qy * a for a, b in zip(c[0:3], c[4:7]))
+        jx = (a00 * c[0] + a01 * c[1] + a02 * c[2], a00 * c[4] + a01 * c[5] + a02 * c[6],
+              a00 * ctx[0] + a01 * ctx[1] + a02 * ctx[2])
+        jy = (a10 * c[0] + a11 * c[1] + a12 * c[2], a10 * c[4] + a11 * c[5] + a12 * c[6],
+              a10 * ctx[0] + a11 * ctx[1] + a12 * ctx[2])
+    else:
+        jx = (a00, a01, a02, a01 * (-pz) + a02 * py, a00 * pz + a02 * (-px),
+              a00 * (-py) + a01 * px)
+        jy = (a10, a11, a12, a11 * (-pz) + a12 * py, a10 * pz + a12 * (-px),
+              a10 * (-py) + a11 * px)
+    dof = len(jx)
+    is_out_f = is_out.to(torch.float32)
+    inl = live * (1.0 - is_out_f)
+    rows_l = []
+    for i in range(dof):
+        for j in range(i, dof):
+            rows_l.append(w * (jx[i] * jx[j] + jy[i] * jy[j]))
+    for i in range(dof):
+        rows_l.append(w * (jx[i] * ex + jy[i] * ey))
+    rows_l += [chi * inl, chi * live * is_out_f, inl]
+    return torch.stack(rows_l)
+
+
 def _gn_loop_plain(num_iterations, min_iterations, par, pose0, wx, wy, wz, mx, my, wgt,
                    planar: bool = False, rounds_out=None):
     """The GN early-exit loop: lane sums on the lanes' device, solve on host.
     ``planar`` swaps the 6-DoF Jacobian and update for the conjugated SE(2)
-    ones (picp_kernel.py:680-706); projection and robust kernel are shared.
-    The number of rounds run is appended to the list ``rounds_out``, if given
-    (the kernels run the same number: they agree bit for bit)."""
-    z_near, z_far, cols, rows, kt, keep_out, damping, tol = par[0:8]
-    min_inl = par[9]
-    k = par[10:19]
-    keep_out = float(keep_out)
+    ones. The number of rounds run is appended to the list ``rounds_out``, if
+    given (the kernels run the same number: they agree bit for bit)."""
+    damping, tol, min_inl = par[6], par[7], par[9]
     pose = pose0
     zero = torch.zeros((), dtype=torch.float32)
     stats = (zero, zero, zero)
     it, active = 0, True
     while it < num_iterations and (active or it < min_iterations):
-        r00, r01, r02, t0, r10, r11, r12, t1, r20, r21, r22, t2 = pose
-        px = r00 * wx + r01 * wy + r02 * wz + t0
-        py = r10 * wx + r11 * wy + r12 * wz + t1
-        pz = r20 * wx + r21 * wy + r22 * wz + t2
-        hx = k[0] * px + k[1] * py + k[2] * pz
-        hy = k[3] * px + k[4] * py + k[5] * pz
-        hz = k[6] * px + k[7] * py + k[8] * pz
-        iz = 1.0 / torch.where(hz == 0.0, 1.0, hz)
-        u = hx * iz
-        v = hy * iz
-        valid = (
-            (pz <= z_far) & (pz >= z_near) & (hz > 1e-6)
-            & (u >= 0.0) & (u <= cols - 1.0) & (v >= 0.0) & (v <= rows - 1.0)
-        )
-        ex = u - mx
-        ey = v - my
-        chi = ex * ex + ey * ey
-        is_out = chi > kt
-        lam = torch.where(is_out, _sqrt(kt / torch.clamp_min(chi, 1e-30)), 1.0)
-        live = wgt * valid.to(torch.float32)
-        w = live * torch.where(is_out, keep_out, 1.0) * lam
-        iz2 = iz * iz
-        a00 = k[0] * iz - k[6] * hx * iz2
-        a01 = k[1] * iz - k[7] * hx * iz2
-        a02 = k[2] * iz - k[8] * hx * iz2
-        a10 = k[3] * iz - k[6] * hy * iz2
-        a11 = k[4] * iz - k[7] * hy * iz2
-        a12 = k[5] * iz - k[8] * hy * iz2
-        if planar:
-            c = par[40:52]
-            qx = c[0] * px + c[1] * py + c[2] * pz + c[3]
-            qy = c[4] * px + c[5] * py + c[6] * pz + c[7]
-            ctx = tuple(qx * b - qy * a for a, b in zip(c[0:3], c[4:7]))
-            jx = (a00 * c[0] + a01 * c[1] + a02 * c[2], a00 * c[4] + a01 * c[5] + a02 * c[6],
-                  a00 * ctx[0] + a01 * ctx[1] + a02 * ctx[2])
-            jy = (a10 * c[0] + a11 * c[1] + a12 * c[2], a10 * c[4] + a11 * c[5] + a12 * c[6],
-                  a10 * ctx[0] + a11 * ctx[1] + a12 * ctx[2])
-        else:
-            jx = (a00, a01, a02, a01 * (-pz) + a02 * py, a00 * pz + a02 * (-px),
-                  a00 * (-py) + a01 * px)
-            jy = (a10, a11, a12, a11 * (-pz) + a12 * py, a10 * pz + a12 * (-px),
-                  a10 * (-py) + a11 * px)
-        dof = len(jx)
-        is_out_f = is_out.to(torch.float32)
-        inl = live * (1.0 - is_out_f)
-        rows_l = []
-        for i in range(dof):
-            for j in range(i, dof):
-                rows_l.append(w * (jx[i] * jx[j] + jy[i] * jy[j]))
-        for i in range(dof):
-            rows_l.append(w * (jx[i] * ex + jy[i] * ey))
-        rows_l += [chi * inl, chi * live * is_out_f, inl]
-        sums = _block_sum(torch.stack(rows_l))
+        sums = _block_sum(_gn_lane_rows(par, pose, wx, wy, wz, mx, my, wgt, planar))
         if planar:
             pose, active, stats = _gn_update_se2(sums, pose, par, wx.device)
         else:
@@ -522,3 +539,81 @@ def track_frames(
     if _lib.use_kernel(backend, prev_al):
         return track_frames_cuda(*args)
     return track_frames_plain(*args)
+
+
+# --------------------------------------------------------------------------
+# K8: the frame loop over a batch of sequences
+# --------------------------------------------------------------------------
+
+
+def track_frames_batched_plain(params, pose0, init_tri, init_tri_ok, cand: JoinCandidates,
+                               prev_al, cur_al, corr_valid, num_iterations: int,
+                               min_iterations: int = 1, planar: bool = False):
+    """Plain PyTorch version of K8: :func:`track_frames_plain` on each sequence
+    in turn, the shared parameter row with that sequence's start pose in it."""
+    outs = []
+    for i in range(pose0.shape[0]):
+        row = params.clone()
+        row[28:40] = pose0[i]
+        outs.append(track_frames_plain(
+            row, init_tri[i], init_tri_ok[i], JoinCandidates(*(x[i] for x in cand)), prev_al[i],
+            cur_al[i], corr_valid[i], num_iterations, min_iterations, planar))
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def track_frames_batched_cuda(params, pose0, init_tri, init_tri_ok, cand: JoinCandidates,
+                              prev_al, cur_al, corr_valid, num_iterations: int,
+                              min_iterations: int = 1, planar: bool = False):
+    """Launch K8: one CTA per sequence, one thread per lane (S <= 1024)."""
+    n, f, depth, s = cand.idx.shape
+    dev = _lib.cuda_device(prev_al)
+    if s > 1024:
+        raise ValueError(f"track_frames_batched kernel takes S <= 1024 lanes, got {s}")
+    _lib.check(params, "params", torch.float32, (64 if planar else 40,), dev)
+    _lib.check(pose0, "pose0", torch.float32, (n, 12), dev)
+    _lib.check(init_tri, "init_tri", torch.float32, (n, s, 3), dev)
+    _lib.check(init_tri_ok, "init_tri_ok", torch.bool, (n, s), dev)
+    _lib.check(cand.idx, "cand.idx", torch.int32, (n, f, depth, s), dev)
+    _lib.check(cand.ok, "cand.ok", torch.bool, (n, f, depth, s), dev)
+    _lib.check(prev_al, "prev_al", torch.float32, (n, f, s, 2), dev)
+    _lib.check(cur_al, "cur_al", torch.float32, (n, f, s, 2), dev)
+    _lib.check(corr_valid, "corr_valid", torch.bool, (n, f, s), dev)
+    poses = torch.empty((n, f, 4, 4), dtype=torch.float32, device=dev)
+    tri = torch.empty((n, f, s, 3), dtype=torch.float32, device=dev)
+    tri_ok = torch.empty((n, f, s), dtype=torch.bool, device=dev)
+    stats = torch.empty((n, f, 4), dtype=torch.float32, device=dev)
+    _lib.launch(
+        *(("track_frames_batched_planar", "vo_track_frames_batched_planar") if planar
+          else ("track_frames_batched", "vo_track_frames_batched")), dev,
+        *(t.data_ptr() for t in (params, pose0, init_tri, init_tri_ok, cand.idx, cand.ok, prev_al,
+                                 cur_al, corr_valid, poses, tri, tri_ok, stats)),
+        n, f, s, depth, int(num_iterations), int(min_iterations),
+    )
+    return poses, tri, tri_ok, stats
+
+
+def track_frames_batched(
+    camera_matrix, cam_params, x_init, init_tri, init_tri_ok, cand: JoinCandidates,
+    prev_al, cur_al, corr_valid, num_iterations: int, kernel_threshold, damping, tolerance,
+    keep_outliers: bool = False, warm_start: bool = False, min_num_inliers=0.0,
+    min_iterations: int = 1, backend: str = "auto", planar: bool = False, cam_in_robot=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Track N independent sequences in one launch (the JAX
+    ``track_frames_fused_serving`` contract): one shared camera and one set of
+    knobs; ``x_init`` (N, 4, 4), ``init_tri`` (N, S, 3), ``init_tri_ok``
+    (N, S), ``cand`` with (N, F, D, S) chains, ``prev_al``/``cur_al``
+    (N, F, S, 2), ``corr_valid`` (N, F, S). Returns poses (N, F, 4, 4), tri
+    (N, F, S, 3), tri_ok (N, F, S) and stats (N, F, 4); per sequence the
+    result of :func:`track_frames` on that sequence's inputs. A sequence with
+    no valid correspondence runs ``min_iterations`` rounds a frame (the whole
+    budget under ``tolerance < 0``) on zero sums and keeps its start pose or
+    the identity; nothing in it is NaN."""
+    params = pack_params(camera_matrix, cam_params, x_init[0], kernel_threshold, damping,
+                         tolerance, keep_outliers, warm_start, min_num_inliers, planar,
+                         cam_in_robot)
+    pose0 = x_init[:, :3, :4].to(torch.float32).reshape(-1, 12).contiguous()
+    args = (params, pose0, init_tri, init_tri_ok, cand, prev_al, cur_al, corr_valid,
+            num_iterations, min_iterations, planar)
+    if _lib.use_kernel(backend, prev_al):
+        return track_frames_batched_cuda(*args)
+    return track_frames_batched_plain(*args)

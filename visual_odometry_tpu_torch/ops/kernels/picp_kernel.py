@@ -1,5 +1,6 @@
 """K6: one standalone projective-ICP Gauss-Newton solve in one launch, SE(3)
-(:func:`solve_fused`) and planar (:func:`solve_se2_fused`).
+(:func:`solve_fused`) and planar (:func:`solve_se2_fused`); K11: one GN
+linearization, H, b and the stats, in one launch (:func:`linearize`).
 
 Replaces ``visual_odometry_tpu/ops/pallas/picp_kernel.py:solve_fused`` and
 ``solve_se2_fused`` with ``csrc/picp_solve.cu``: one CTA of up to 1024 threads
@@ -17,6 +18,14 @@ bit for bit on the card at any N.
 The arithmetic is the TPU kernel's Schur-complement form on Jacobi-scaled
 sums; ``ops/picp.solve``'s plain round-by-round loop solves the same system
 through a 6x6 Cholesky and agrees to float32 tolerance, not bitwise.
+
+K11 replaces ``picp_kernel.py:linearize_pallas`` with
+``csrc/picp_linearize.cu``: K6's block without the loop, the 30 lane sums of
+one round written out as H (mirrored), b and the stats. Its plain version sums
+the same lane terms in the same order, so the two agree bit for bit on the
+card. Unlike the TPU kernel it applies the near-depth guard ``hz > 1e-6`` of
+``ops/picp.linearize`` (the lane terms are the GN loops', which have it). The
+TPU kernel's tiling (``tile``) and ``interpret`` are not carried over.
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ import torch
 
 from ..picp import PICPStats
 from . import _lib
-from .frame_kernel import _gn_loop_plain, pack_params
+from .frame_kernel import _block_sum, _gn_lane_rows, _gn_loop_plain, pack_params
 
 
 def _result(pose44: torch.Tensor, stats3: torch.Tensor) -> Tuple[torch.Tensor, PICPStats]:
@@ -130,3 +139,64 @@ def solve_se2_fused_plain(camera_matrix, world_in_camera, cam_params, cam_in_rob
     return _solve("torch", True, camera_matrix, world_in_camera, cam_params, cam_in_robot,
                   world_points, measured_points, weights, num_iterations, kernel_threshold,
                   damping, tolerance, keep_outliers, min_num_inliers, min_iterations, rounds_out)
+
+
+# --------------------------------------------------------------------------
+# K11: one linearization
+# --------------------------------------------------------------------------
+
+
+def _linear_system(out45: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, PICPStats]:
+    return out45[:36].reshape(6, 6), out45[36:42], PICPStats(
+        chi_inliers=out45[42], chi_outliers=out45[43], num_inliers=out45[44].to(torch.int32))
+
+
+def _linearize_plain(params, world_points, measured_points, weights):
+    par = params.cpu().unbind(0)
+    sums = _block_sum(_gn_lane_rows(
+        par, tuple(par[28:40]), world_points[:, 0], world_points[:, 1], world_points[:, 2],
+        measured_points[:, 0], measured_points[:, 1], weights))
+    upper = torch.zeros((6, 6), dtype=torch.float32)
+    iu = torch.triu_indices(6, 6)
+    upper[iu[0], iu[1]] = sums[:21]
+    h = upper + torch.triu(upper, 1).T
+    return _linear_system(torch.cat([h.reshape(36), sums[21:]]).to(world_points.device))
+
+
+def _linearize_cuda(params, world_points, measured_points, weights):
+    n = world_points.shape[0]
+    dev = _lib.cuda_device(world_points)
+    _lib.check(params, "params", torch.float32, (40,), dev)
+    _lib.check(world_points, "world_points", torch.float32, (n, 3), dev)
+    _lib.check(measured_points, "measured_points", torch.float32, (n, 2), dev)
+    _lib.check(weights, "weights", torch.float32, (n,), dev)
+    out = torch.empty((45,), dtype=torch.float32, device=dev)
+    _lib.launch("picp_linearize", "vo_picp_linearize", dev,
+                *(t.data_ptr() for t in (params, world_points, measured_points, weights, out)), n)
+    return _linear_system(out)
+
+
+def linearize(camera_matrix, world_in_camera, cam_params, world_points, measured_points, weights,
+              kernel_threshold, keep_outliers: bool = False,
+              backend: str = "auto") -> Tuple[torch.Tensor, torch.Tensor, PICPStats]:
+    """One GN linearization at ``world_in_camera`` (the JAX ``linearize_pallas``
+    contract, a drop-in for ``ops.picp.linearize``): camera matrix (3, 3), pose
+    (4, 4), cam_params (4,) = [z_near, z_far, cols, rows], world (N, 3),
+    measurements (N, 2), weights (N,). Returns H (6, 6), b (6,) and the stats.
+    Dead slots must hold finite values (``ops.picp.solve`` sanitizes them)."""
+    params = pack_params(camera_matrix, cam_params, world_in_camera, kernel_threshold, 0.0, 0.0,
+                         keep_outliers, False, 0.0, k_inverse=False)
+    args = (params, world_points.to(torch.float32).contiguous(),
+            measured_points.to(torch.float32).contiguous(),
+            weights.to(torch.float32).contiguous())
+    if _lib.use_kernel(backend, world_points):
+        return _linearize_cuda(*args)
+    return _linearize_plain(*args)
+
+
+def linearize_plain(camera_matrix, world_in_camera, cam_params, world_points, measured_points,
+                    weights, kernel_threshold,
+                    keep_outliers: bool = False) -> Tuple[torch.Tensor, torch.Tensor, PICPStats]:
+    """Plain PyTorch version of :func:`linearize` on any device."""
+    return linearize(camera_matrix, world_in_camera, cam_params, world_points, measured_points,
+                     weights, kernel_threshold, keep_outliers, backend="torch")

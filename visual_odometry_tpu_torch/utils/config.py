@@ -32,6 +32,7 @@ import numpy as np
 BACKENDS = ("auto", "cuda", "torch")
 SCAN_BACKENDS = BACKENDS + ("step",)
 MATCHER_PRECISIONS = ("highest", "fast")
+REFINE_BACKENDS = ("dense", "sparse")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +67,9 @@ class VOConfig:
     num_chunks: int = 1
     chunk_overlap: int = 10
 
-    # --- global refinement (not ported yet) ---
+    # --- global refinement (models/refinement): bundle adjustment after
+    # tracking when refine_iterations > 0; "dense" is the Schur form over an
+    # (F, L) grid, "sparse" the COO form with matrix-free Schur-CG (K9, K10).
     refine_iterations: int = 0
     refine_damping: float = 1.0
     refine_backend: str = "dense"
@@ -81,7 +84,8 @@ class VOConfig:
     def __post_init__(self):
         for name, allowed in (("matcher_backend", BACKENDS), ("scan_backend", SCAN_BACKENDS),
                               ("solver_backend", BACKENDS),
-                              ("matcher_precision", MATCHER_PRECISIONS)):
+                              ("matcher_precision", MATCHER_PRECISIONS),
+                              ("refine_backend", REFINE_BACKENDS)):
             value = getattr(self, name)
             if value not in allowed:
                 raise ValueError(f"{name}={value!r}; expected one of {allowed}")
@@ -108,11 +112,6 @@ class VOConfig:
             raise NotImplementedError(
                 "num_chunks > 1 (chunked tracking, parallel/posegraph) is not "
                 "ported yet: ROADMAP.md queue 1 item 11"
-            )
-        if self.refine_iterations > 0:
-            raise NotImplementedError(
-                "refine_iterations > 0 (bundle adjustment) is not ported yet: "
-                "ROADMAP.md queue 1 items 9-10"
             )
 
 

@@ -136,3 +136,34 @@ def picp_stats_from_arrays(chi_inliers, chi_outliers, num_inliers, device="cpu")
     return PICPStats(chi_inliers=_t(chi_inliers, torch.float32, device),
                      chi_outliers=_t(chi_outliers, torch.float32, device),
                      num_inliers=_t(num_inliers, torch.int32, device))
+
+
+def sparse_ba_problem_from_arrays(poses, landmarks, frame_idx, lm_idx, uv, obs_mask,
+                                  device="cpu"):
+    """A ``parallel.sparse_ba.SparseBAProblem`` from the numpy fields of the
+    JAX package's NamedTuple of the same name (``**problem._asdict()``)."""
+    from ..parallel.sparse_ba import SparseBAProblem
+
+    return SparseBAProblem(
+        poses=_t(poses, torch.float32, device), landmarks=_t(landmarks, torch.float32, device),
+        frame_idx=_t(frame_idx, torch.int32, device), lm_idx=_t(lm_idx, torch.int32, device),
+        uv=_t(uv, torch.float32, device), obs_mask=_t(np.asarray(obs_mask, bool), torch.bool,
+                                                      device))
+
+
+def ba_problem_from_arrays(poses, landmarks, observations, obs_mask, device="cpu"):
+    """A ``parallel.bundle_adjustment.BAProblem`` from the numpy fields of the
+    JAX package's."""
+    from ..parallel.bundle_adjustment import BAProblem
+
+    return BAProblem(
+        poses=_t(poses, torch.float32, device), landmarks=_t(landmarks, torch.float32, device),
+        observations=_t(observations, torch.float32, device),
+        obs_mask=_t(np.asarray(obs_mask, bool), torch.bool, device))
+
+
+def ba_solution_to_arrays(problem) -> dict:
+    """The refined unknowns of either problem kind as numpy: poses (F, 4, 4)
+    and landmarks (L, 3), what a test holds against the JAX package's step."""
+    return dict(poses=problem.poses.detach().cpu().numpy(),
+                landmarks=problem.landmarks.detach().cpu().numpy())
