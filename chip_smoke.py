@@ -8,8 +8,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
   2. build: compile csrc/*.cu with nvcc into build/vo_torch_kernels/;
   3. each kernel against its plain PyTorch version on the card, with
      CUDA-event times and its bound on this card: K1 pair matcher, K2 join
-     candidates, K3 lane gather, K4 fused frame loop and K5 its planar form on
-     the main path's own inputs (S = 1024 slots x 512 frames; the plain K4/K5
+     candidates, K3 record gather (path B's two pixel gathers and its
+     appearance gather, also with indices past S), K4 fused frame loop and
+     K5 its planar form on the main path's own inputs (S = 1024 slots x 512 frames; the plain K4/K5
      are Python loops: K4 is compared over the first 256 tracked frames, K5
      over the first 128; path B holds K4 to the plain run at full depth), K6 standalone solves (SE(3) and planar) at N = 1024 and 8192,
      K7 map-scale matcher (exact and fast) at Q = 1024, K = 2^20 with masked
@@ -18,7 +19,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      sequence against K4/K5 launched alone and its first sequence against
      the plain version over all 126 frames; K9 segment sum and K10 table gather at the sparse-BA
      corridor's shapes (N ~ 6e5, T = 512, R = 36 / 6 and 12 / 6) beside
-     index_add_ and index_select; K11 linearization at N = 1024 and 8192;
+     index_add_ and index_select (K10 in the layouts a step uses, the table
+     read in place through its strides); K3 and K10 rows and their library calls
+     carry device_ms (profiler) and host_ms (host clock, no sync) beside
+     ms; K11 linearization at N = 1024 and 8192;
   4. path A: the reference-format applications — generate_dataset (40 frames,
      400 landmarks), apps.run_vo_complete, run_vo_se2, run_vo_da_known and
      run_relocalize (both matcher precisions) on cuda, apps.run_evaluation —
@@ -50,7 +54,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 ``python3 chip_smoke.py --stages`` instead runs the entry points of paths B, C,
 D and E and one sparse-BA step of path F(2) in each layout inside ``profiling.stage_times`` and prints the time of each step the
 pipeline itself marks (ended by a sync, median of 5), then each path's kernel
-times and device-busy share under torch.profiler, and no result line.
+times and device-busy share under torch.profiler, each stage's host time by
+PyTorch operator and CUDA runtime call, and what a stage sample right after
+a long device wait holds (after_wait_report); no result line.
 
 The launch counters are zeroed right before each path and read right after;
 every kernel of a path must have launched in it. The last lines are the
@@ -92,6 +98,7 @@ KERNELS = {
     "picp_linearize": (_CSRC + "picp_linearize.cu", _PALLAS + "picp_kernel.py:141", "G"),
 }
 MAIN_PATH = ("match_pairs", "join_candidates", "gather_rows", "track_frames")
+K3_PATH_LAUNCHES = 3   # a tracked sequence gathers previous pixels, current pixels, appearances
 # Path A's applications run K1-K7 except the standalone planar solve.
 PATH_A = MAIN_PATH + ("track_frames_planar", "picp_solve", "best_match", "best_match_fast")
 K4_POSE_TOL = 2e-3   # the repo's fused-vs-scan trajectory tolerance (tests/test_pipeline.py:331)
@@ -144,6 +151,53 @@ def time_ms(fn, device, reps: int, warmup: int = 1) -> float:
     for _ in range(warmup):
         fn()
     return statistics.median(timed_call(fn, device)[1] for _ in range(reps))
+
+
+def device_events(prof):
+    """A profile's device events, the device-side spans of ``vo/`` ranges
+    left out."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.name.startswith("vo/")]
+
+
+def launch_times(fn, device, reps: int) -> dict:
+    """One call of ``fn``, which launches one kernel, three ways: ``ms``, CUDA
+    events around it (median); ``device_ms``, the profiler's mean device
+    time of the kernels it saw in ``reps`` calls; ``host_ms``, the host clock
+    around it with no sync (median)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = time_ms(fn, device, reps)
+    host = []
+    for _ in range(reps):
+        sync(device)
+        t0 = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t0)
+    sync(device)
+    # The profiler drops some device events of a short window (5 of 50, and
+    # once all of them, in runs on the H100): the mean is taken over the
+    # kernels it saw, and a window that shows fewer than half is profiled
+    # again, at most thrice.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync(device)
+        on_card = device_events(prof)
+        if 2 * len(on_card) >= reps:
+            break
+    require(2 * len(on_card) >= reps,
+            f"launch_times: the profiler saw {len(on_card)} kernels of {reps} calls")
+    busy_us = sum(e.time_range.elapsed_us() for e in on_card)
+    return dict(ms=ms, device_ms=busy_us / 1e3 / len(on_card),
+                host_ms=1e3 * statistics.median(host))
+
+
+def prefixed(prefix: str, row: dict) -> dict:
+    return {prefix + k: v for k, v in row.items()}
 
 
 def nbytes(*tensors) -> int:
@@ -207,7 +261,7 @@ def kernel_inputs(camera, config, pts, apps, masks):
     import torch
 
     from visual_odometry_tpu_torch.models import pipeline
-    from visual_odometry_tpu_torch.ops.kernels import frame_kernel
+    from visual_odometry_tpu_torch.ops.kernels import frame_kernel, gather_kernel
 
     plain = config.replace(matcher_backend="torch", scan_backend="torch")
     ids = torch.full(masks.shape, -1, dtype=torch.int32, device=masks.device)
@@ -224,12 +278,8 @@ def kernel_inputs(camera, config, pts, apps, masks):
     cand = frame_kernel.join_candidates(*join_args, backend="torch")
     safe1 = torch.where(corr.valid, corr.idx1, 0)
     safe2 = torch.where(corr.valid, corr.idx2, 0)
-    pix_src = torch.stack([prev.points[..., 0], prev.points[..., 1],
-                           rest.points[..., 0], rest.points[..., 1]], dim=1).contiguous()
-    pix_idx = torch.stack([safe1, safe1, safe2, safe2], dim=1).contiguous()
-    app_src = rest.appearances.transpose(1, 2).contiguous()
-    app_idx = safe2[:, None, :].expand(app_src.shape).contiguous()
-    pix = torch.gather(pix_src, 2, pix_idx.long())
+    prev_al = gather_kernel.gather_rows_plain(prev.points, safe1)
+    cur_al = gather_kernel.gather_rows_plain(rest.points, safe2)
 
     # K4's arguments, or K5's for a planar config (planarized bootstrap).
     state, _ = pipeline.initialize(camera, plain, f0, f1, corr=corr01)
@@ -241,8 +291,8 @@ def kernel_inputs(camera, config, pts, apps, masks):
             config.planar_mount(),
         ),
         state.tri_points.contiguous(), state.tri_valid.contiguous(), cand,
-        pix[:, 0:2].transpose(1, 2).contiguous(), pix[:, 2:4].transpose(1, 2).contiguous(),
-        corr.valid.contiguous(), config.gn_iterations, config.gn_min_iterations, config.planar,
+        prev_al, cur_al, corr.valid.contiguous(), config.gn_iterations,
+        config.gn_min_iterations, config.planar,
     )
     k1_batch = (prev.appearances.contiguous(), prev.mask.contiguous(),
                 rest.appearances.contiguous(), rest.mask.contiguous())
@@ -251,8 +301,8 @@ def kernel_inputs(camera, config, pts, apps, masks):
         "match_pairs": k1_batch,
         "match_pairs_b1": k1_pair,
         "join_candidates": join_args,
-        "gather_rows": (pix_src, pix_idx),
-        "gather_rows_apps": (app_src, app_idx),
+        "gather_rows_pixels": ((prev.points, safe1), (rest.points, safe2)),
+        "gather_rows_apps": (rest.appearances, safe2),
         "track_frames": frame_args,
     }
 
@@ -306,7 +356,7 @@ def compare_frame_kernel(name, args, plain_frames, device, table, track):
                        us_per_gn_round=1e3 * ms_short / sum(rounds))
 
 
-def compare_kernels(inputs, device, kernel_fns, reps: int = 10):
+def compare_kernels(inputs, device, kernel_fns, reps: int = 10, launch_reps: int = 50):
     """K1-K4: run each kernel and its plain version on the same inputs; returns
     {name: row fields} and raises on disagreement."""
     import torch
@@ -349,18 +399,30 @@ def compare_kernels(inputs, device, kernel_fns, reps: int = 10):
         plain_ms=time_ms(lambda: frame_kernel.join_candidates_plain(*a), device, 3),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
-    for key in ("gather_rows", "gather_rows_apps"):
-        a = inputs[key]
-        require(torch.equal(kernel_fns["gather_rows"](*a), gather_kernel.gather_rows_plain(*a)),
-                f"K3 {key}: gathers differ")
-    a = inputs["gather_rows_apps"]
-    idx64 = a[1].long()
-    bound_ms, bound_by = bound(2 * nbytes(a[0]) + nbytes(a[1]), 0.0)
-    out["gather_rows"] = dict(
-        max_abs_err=0.0, ms=time_ms(lambda: kernel_fns["gather_rows"](*a), device, reps),
-        plain_ms=time_ms(lambda: gather_kernel.gather_rows_plain(*a), device, reps),
-        bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=time_ms(lambda: torch.gather(a[0], 2, idx64), device, reps))
+    # K3 at path B's three gathers: previous and current pixels (D=2), the
+    # appearances (D=10); each also with indices past both ends of S.
+    k3 = {}
+    for key, (src, idx) in (("pixels_prev", inputs["gather_rows_pixels"][0]),
+                            ("pixels_cur", inputs["gather_rows_pixels"][1]),
+                            ("apps", inputs["gather_rows_apps"])):
+        f, s, d = src.shape
+        wild = idx.clone()
+        wild[:, ::7] = -3
+        wild[:, 3::7] = s + 5
+        for ix in (idx, wild):
+            require(torch.equal(kernel_fns["gather_rows"](src, ix),
+                                gather_kernel.gather_rows_plain(src, ix)),
+                    f"K3 {key}: the gather differs from the plain version")
+        idx64 = idx.long()[..., None].expand(f, s, d)      # the library's index, made once
+        bound_ms, bound_by = bound(2 * nbytes(src) + nbytes(idx), 0.0)
+        k3[key] = dict(
+            launch_times(lambda: kernel_fns["gather_rows"](src, idx), device, launch_reps),
+            plain_ms=time_ms(lambda: gather_kernel.gather_rows_plain(src, idx), device, reps),
+            bound_ms=bound_ms, bound_by=bound_by,
+            **prefixed("library_", launch_times(lambda: torch.gather(src, 1, idx64), device,
+                                                launch_reps)))
+    out["gather_rows"] = dict(max_abs_err=0.0, **k3["apps"], pixels_prev=k3["pixels_prev"],
+                              pixels_cur=k3["pixels_cur"])
 
     compare_frame_kernel("track_frames", inputs["track_frames"], K4_PLAIN_FRAMES, device, out,
                          kernel_fns["track_frames"])
@@ -594,7 +656,7 @@ def corridor(device):
     return torch.from_numpy(k).to(device), problem, n_live
 
 
-def compare_sparse_ba_kernels(problem, device, table, reps: int = 10):
+def compare_sparse_ba_kernels(problem, device, table, reps: int = 10, launch_reps: int = 50):
     """K9 and K10 at the shapes a sparse-BA step gives them: the corridor's
     own frame ids (masked observations dropped through id T) and pose rows;
     K9 at R = 36 and 6 with random rows beside ``index_add_``, K10 at R = 12
@@ -633,25 +695,37 @@ def compare_sparse_ba_kernels(problem, device, table, reps: int = 10):
     row.update(rows=n, segments=f)
     table["segment_sum"] = row
 
+    # K10 as a step calls it: R=12, the (F, 12) pose rows read as their
+    # strided transpose into (12, N); R=6, an (F, 6) CG vector the same way
+    # into (N, 6). Each beside index_select on the same table layout.
     idx = torch.where(problem.obs_mask, problem.frame_idx, 0).contiguous()
     idx64 = idx.long()
-    pose_rows = problem.poses[:, :3, :4].reshape(f, 12).T.contiguous()
-    row = dict(max_abs_err=0.0)
-    for r in (12, 6):
-        tab = pose_rows[:r].contiguous()
-        got = gather_kernel.take_table_cuda(tab, idx)
-        require(torch.equal(got, gather_kernel.take_table_plain(tab, idx)),
-                f"K10 R={r}: the gather differs from the plain version")
-        bound_ms, bound_by = bound(nbytes(tab, idx, got), 0.0)
-        row[f"r{r}"] = dict(
-            ms=time_ms(lambda: gather_kernel.take_table_cuda(tab, idx), device, reps),
-            plain_ms=time_ms(lambda: gather_kernel.take_table_plain(tab, idx), device, reps),
-            library_ms=time_ms(lambda: torch.index_select(tab, 1, idx64), device, reps),
-            bound_ms=bound_ms, bound_by=bound_by)
+    tab12 = problem.poses[:, :3, :4].reshape(f, 12)
+    vec6 = torch.from_numpy(rng.normal(size=(f, 6)).astype(np.float32)).to(device)
     edge = torch.tensor([-7, 0, f - 1, f, 2**30], dtype=torch.int32, device=device)
-    require(torch.equal(gather_kernel.take_table_cuda(pose_rows, edge),
-                        gather_kernel.take_table_plain(pose_rows, edge)),
-            "K10: out-of-range indices are not clipped like the plain version's")
+    row = dict(max_abs_err=0.0)
+    for r, rows, transpose_out in ((12, tab12, False), (6, vec6, True)):
+        for tab in (rows.T, rows.T.contiguous()):
+            for ix in (idx, edge):
+                require(torch.equal(gather_kernel.take_table_cuda(tab, ix, transpose_out),
+                                    gather_kernel.take_table_plain(tab, ix, transpose_out)),
+                        f"K10 R={r} (contiguous={tab.is_contiguous()}): "
+                        "the gather differs from the plain version")
+        tab = rows.T
+        got = gather_kernel.take_table_cuda(tab, idx, transpose_out)
+        bound_ms, bound_by = bound(nbytes(rows, idx, got), 0.0)
+
+        def library():
+            return (torch.index_select(rows, 0, idx64) if transpose_out
+                    else torch.index_select(tab, 1, idx64))
+
+        row[f"r{r}"] = dict(
+            launch_times(lambda: gather_kernel.take_table_cuda(tab, idx, transpose_out),
+                         device, launch_reps),
+            plain_ms=time_ms(lambda: gather_kernel.take_table_plain(tab, idx, transpose_out),
+                             device, reps),
+            bound_ms=bound_ms, bound_by=bound_by,
+            **prefixed("library_", launch_times(library, device, launch_reps)))
     row.update(row["r12"])
     row.update(columns=n, table_columns=f)
     table["take_table"] = row
@@ -784,6 +858,9 @@ def run_path_b(camera, config, pts, apps, masks, device, require_launches: bool 
     traj, map_state, outs = pipeline.run_sequence(camera, config, pts, apps, masks)
     sync(device)
     launches = read_launches(MAIN_PATH, "path B", require_launches)
+    if require_launches:
+        require(launches["gather_rows"] == K3_PATH_LAUNCHES,
+                f"path B: K3 must launch {K3_PATH_LAUNCHES} times: {launches}")
     require(bool(torch.isfinite(traj).all()), "path B: non-finite poses")
     plain = config.replace(matcher_backend="torch", scan_backend="torch")
     traj_p, map_p, _ = pipeline.run_sequence(camera, plain, pts, apps, masks)
@@ -924,8 +1001,10 @@ def run_path_d(camera, planar, pts, apps, masks, device, require_launches: bool 
     launches = read_launches(("match_pairs", "join_candidates", "gather_rows",
                               "track_frames_planar"), "path D", require_launches)
     if require_launches:
-        require(launches["track_frames_planar"] == 1 and launches["track_frames"] == 0,
-                f"path D: K5 must launch once and K4 not at all: {launches}")
+        require(launches["track_frames_planar"] == 1 and launches["track_frames"] == 0
+                and launches["gather_rows"] == K3_PATH_LAUNCHES,
+                f"path D: K5 must launch once, K4 not at all, K3 {K3_PATH_LAUNCHES} times: "
+                f"{launches}")
     require(bool(torch.isfinite(traj).all()), "path D: non-finite poses")
     dev = se3.planar_deviation(traj.cpu(), mount)
     require(dev < PLANAR_DEV_TOL, f"path D: planar-subgroup deviation {dev}")
@@ -1051,8 +1130,8 @@ def run_path_e(camera, serving, device, require_launches: bool = True, reps: int
         ran = read_launches(("match_pairs", "join_candidates", "gather_rows", k8), label,
                             require_launches)
         if require_launches:
-            want = {"match_pairs": 2, "join_candidates": 1, "gather_rows": 2, k8: 1,
-                    "track_frames": 0, "track_frames_planar": 0}
+            want = {"match_pairs": 2, "join_candidates": 1, "gather_rows": K3_PATH_LAUNCHES,
+                    k8: 1, "track_frames": 0, "track_frames_planar": 0}
             require(all(ran[k] == v for k, v in want.items()),
                     f"{label}: K1-K3 must launch once a stage over the batch and K8 once: {ran}")
         for k, v in ran.items():
@@ -1223,6 +1302,79 @@ def run_path_g(device, n: int = 8192, require_launches: bool = True, reps: int =
     return launches
 
 
+def stage_host_breakdown(prof, top: int = 8) -> dict:
+    """Where the host time of each ``vo/<stage>`` range of a profiled call
+    goes: the range's total (ms, summed over its calls), its ``top`` direct
+    children by name (PyTorch operators, CUDA runtime calls), the CUDA
+    runtime calls at any depth by name, and ``python_ms``, what no child
+    covers."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.name.startswith("vo/"):
+            continue
+        row = out.setdefault(e.name[3:], {"ms": 0.0, "python_ms": 0.0, "children": {},
+                                          "cuda_runtime": {}})
+        total = e.time_range.elapsed_us() / 1e3
+        row["ms"] += total
+        row["python_ms"] += total - sum(c.time_range.elapsed_us() for c in e.cpu_children) / 1e3
+        for c in e.cpu_children:
+            kids = row["children"]
+            kids[c.name] = kids.get(c.name, 0.0) + c.time_range.elapsed_us() / 1e3
+        stack = list(e.cpu_children)
+        while stack:
+            c = stack.pop()
+            stack.extend(c.cpu_children)
+            if c.name.startswith("cuda"):
+                rt = row["cuda_runtime"]
+                rt[c.name] = rt.get(c.name, 0.0) + c.time_range.elapsed_us() / 1e3
+    for row in out.values():
+        row["children"] = dict(sorted(row["children"].items(), key=lambda kv: -kv[1])[:top])
+    return out
+
+
+def after_wait_report(device, reps: int = 20, waits_ms=(0.0, 27.0)) -> dict:
+    """What a stage sample right after a long device wait measures. For each
+    wait (27 ms is K4's time on path B), the card first sleeps that long and
+    the host waits for it in a sync, as the stage timer's sync after
+    ``frame_loop`` does; then, on the host clock (ms, medians of ``reps``):
+    ``python_ms``, a fixed pure-Python loop; ``call_ms``, K3 at path B's
+    appearance shape with no sync; ``call_sync_ms``, the same call ended by a
+    sync (what the ``appearance_gathers`` sample holds)."""
+    import torch
+
+    from visual_odometry_tpu_torch.ops.kernels import gather_kernel
+
+    rng = np.random.default_rng(0)
+    src = torch.from_numpy(rng.normal(size=(510, 1024, 10)).astype(np.float32)).to(device)
+    idx = torch.from_numpy(rng.integers(0, 1024, (510, 1024)).astype(np.int32)).to(device)
+    cycles = 10_000_000
+    _, sleep_ms = timed_call(lambda: torch.cuda._sleep(cycles), device)
+
+    def busy():
+        return sum(range(2000))
+
+    steps = {"python_ms": busy,
+             "call_ms": lambda: gather_kernel.gather_rows(src, idx),
+             "call_sync_ms": lambda: (gather_kernel.gather_rows(src, idx), sync(device))}
+    out = {"card_sleep_cycles_per_ms": cycles / sleep_ms}
+    for wait in waits_ms:
+        row = {}
+        for key, fn in steps.items():
+            times = []
+            for _ in range(reps):
+                if wait:
+                    torch.cuda._sleep(int(wait * cycles / sleep_ms))
+                sync(device)
+                t0 = time.perf_counter()
+                fn()
+                times.append(1e3 * (time.perf_counter() - t0))
+            row[key] = statistics.median(times)
+        out[f"after_{wait:g}_ms_wait"] = row
+    return out
+
+
 def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1 << 20,
                  reps: int = 5) -> dict:
     """Stage times of run_sequence on path B's and path D's inputs and of
@@ -1231,8 +1383,9 @@ def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1
     ``profiling.stage`` is sampled on the host clock and ended by a sync (ms,
     median of ``reps`` after one warm-up). Then one more call of each under
     torch.profiler gives the time of each of the port's kernels and the
-    device-busy share of the wall time."""
-    from torch.autograd import DeviceType
+    device-busy share of the wall time, and a last one, profiled with the
+    stage syncs on, where each stage's host time goes. ``after_wait_report``
+    closes it."""
     from torch.profiler import ProfilerActivity, profile
 
     from visual_odometry_tpu_torch.models import pipeline
@@ -1257,9 +1410,7 @@ def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1
             fn()
             sync(device)
             wall = time.perf_counter() - t0
-        # Device events only, the vo/ ranges' own device-side spans left out.
-        on_card = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and not e.name.startswith("vo/")]
+        on_card = device_events(prof)
         busy_us = sum(e.time_range.elapsed_us() for e in on_card)
         require(busy_us > 0, "stages: the profiler saw no device time")
         kernels = {}
@@ -1271,6 +1422,10 @@ def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1
                     row["launches"] += 1
         out.update(kernels=kernels, device_busy_ms=busy_us / 1e3, wall_ms=1e3 * wall,
                    busy_share=busy_us / 1e6 / wall)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profiling.stage_times():
+                fn()
+        out["host_breakdown"] = stage_host_breakdown(prof)
         return out
 
     camera = synthetic.deep_camera(device=device)
@@ -1301,6 +1456,7 @@ def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1
                        matcher_precision=precision)
         report["path_c_" + precision] = measured(
             lambda: pipeline.relocalize_frame(camera, cfg, map_state, frame, x0))
+    report["after_device_wait"] = after_wait_report(device)
     return report
 
 

@@ -75,13 +75,47 @@ def test_join_candidates_kernel_equals_plain(dev, f, s, depth):
     assert bool(got.overflow.any())
 
 
-def test_gather_rows_kernel_equals_plain(dev):
+@pytest.mark.parametrize("d", [2, 10])
+@pytest.mark.parametrize("f,s", [(510, 1024), (7, 100)])
+def test_gather_rows_kernel_equals_plain(dev, f, s, d):
+    """Path B's pixel (D=2) and appearance (D=10) gathers at its shape (510
+    frames x 1024 slots) and at a ragged S, with indices past both ends of
+    S: clipped like the plain version's."""
+    rng = np.random.default_rng(d)
+    src = torch.from_numpy(rng.normal(size=(f, s, d)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(-5, s + 5, (f, s)).astype(np.int32)).to(dev)
+    _lib.reset_launches()
+    got = gather_kernel.gather_rows(src, idx)
+    assert _lib.launches["gather_rows"] == 1
+    assert torch.equal(got, gather_kernel.gather_rows_plain(src, idx))
+
+
+def test_gather_rows_kernel_reads_a_batch_slice(dev):
+    """The serving form: a (B, F, S, D) frame slice of the batch, read in
+    place through its leading strides; any other D, a misaligned source and
+    records that are not contiguous take the kernel too, and equal the plain
+    version."""
     rng = np.random.default_rng(0)
-    for f, r, s in ((3, 4, 40), (5, 10, 1024)):
-        src = torch.from_numpy(rng.normal(size=(f, r, s)).astype(np.float32)).to(dev)
-        idx = torch.from_numpy(rng.integers(0, s, (f, r, s)).astype(np.int32)).to(dev)
-        assert torch.equal(gather_kernel.gather_rows(src, idx),
-                           gather_kernel.gather_rows_plain(src, idx))
+    for d in (2, 10, 3):
+        full = torch.from_numpy(rng.normal(size=(4, 9, 128, d)).astype(np.float32)).to(dev)
+        idx = torch.from_numpy(rng.integers(-2, 130, (4, 7, 128)).astype(np.int32)).to(dev)
+        assert torch.equal(gather_kernel.gather_rows(full[:, 1:-1], idx),
+                           gather_kernel.gather_rows_plain(full[:, 1:-1], idx))
+    idx = idx[0]
+    flat = torch.from_numpy(rng.normal(size=7 * 128 * 2 + 1).astype(np.float32)).to(dev)
+    rows = torch.from_numpy(rng.normal(size=(7, 2, 128)).astype(np.float32)).to(dev)
+    for src in (flat[1:].view(7, 128, 2),          # 4-byte aligned only
+                rows.transpose(1, 2),               # (F, S, D) view of (F, D, S) rows
+                torch.from_numpy(rng.normal(size=(7, 128, 1)).astype(np.float32)).to(dev)):
+        _lib.reset_launches()
+        got = gather_kernel.gather_rows(src, idx)
+        assert _lib.launches["gather_rows"] == 1
+        assert torch.equal(got, gather_kernel.gather_rows_plain(src, idx))
+    with pytest.raises(ValueError, match="float32"):
+        gather_kernel.gather_rows_cuda(torch.zeros((7, 128, 2), device=dev, dtype=torch.float64),
+                                       idx)
+    with pytest.raises(ValueError, match="dtype"):
+        gather_kernel.gather_rows_cuda(torch.zeros((7, 128, 2), device=dev), idx.long())
 
 
 def _k4_args(dev, frames, slots, seed_motion=6.0):
@@ -163,6 +197,7 @@ def test_run_sequence_cuda_equals_plain(dev):
     traj, m, outs = pipeline.run_sequence(camera, cfg, pts, apps, masks)
     main_path = ("match_pairs", "join_candidates", "gather_rows", "track_frames")
     assert all(_lib.launches[k] > 0 for k in main_path), _lib.launches
+    assert _lib.launches["gather_rows"] == 3   # previous pixels, current pixels, appearances
     traj_p, m_p, outs_p = pipeline.run_sequence(
         camera, cfg.replace(matcher_backend="torch", scan_backend="torch"), pts, apps, masks)
     assert float((traj - traj_p).abs().max()) <= 2e-3
@@ -438,7 +473,7 @@ def test_run_sequences_batched_cuda_equals_run_sequence(dev):
     _lib.reset_launches()
     traj, maps, outs = multiseq.run_sequences_batched(camera, cfg, *tensors)
     assert (_lib.launches["match_pairs"], _lib.launches["join_candidates"],
-            _lib.launches["gather_rows"], _lib.launches["track_frames_batched"]) == (2, 1, 2, 1)
+            _lib.launches["gather_rows"], _lib.launches["track_frames_batched"]) == (2, 1, 3, 1)
     for i in range(4):
         t_i, m_i, o_i = pipeline.run_sequence(camera, cfg, *(x[i] for x in tensors))
         assert torch.equal(traj[i], t_i)
@@ -448,15 +483,21 @@ def test_run_sequences_batched_cuda_equals_run_sequence(dev):
     assert float((looped[0] - traj).abs().max()) <= 2e-3
 
 
-@pytest.mark.parametrize("r,t,n", [(12, 512, 70000), (6, 40, 1000), (1, 1024, 33), (12, 1024, 5)])
-def test_take_table_kernel_equals_plain(dev, r, t, n):
-    rng = np.random.default_rng(0)
-    table = torch.from_numpy(rng.normal(size=(r, t)).astype(np.float32)).to(dev)
-    idx = torch.from_numpy(rng.integers(-3, t + 3, n).astype(np.int32)).to(dev)
-    _lib.reset_launches()
-    got = gather_kernel.take_table(table, idx)
-    assert _lib.launches["take_table"] == 1
-    assert torch.equal(got, gather_kernel.take_table_plain(table, idx))
+@pytest.mark.parametrize("r", range(1, 13))
+def test_take_table_kernel_equals_plain(dev, r):
+    """R = 1..12 at T up to 1024, the table contiguous and as the transpose
+    of an (F, R) tensor (strided), the output in both layouts; indices past
+    both ends of T are clipped."""
+    rng = np.random.default_rng(r)
+    for t, n in ((1024, 70001), (512, 4096), (40, 1000), (1, 33)):
+        rows = torch.from_numpy(rng.normal(size=(t, r)).astype(np.float32)).to(dev)
+        idx = torch.from_numpy(rng.integers(-3, t + 3, n).astype(np.int32)).to(dev)
+        for table in (rows.T.contiguous(), rows.T):
+            for transpose_out in (False, True):
+                _lib.reset_launches()
+                got = gather_kernel.take_table_cuda(table, idx, transpose_out)
+                assert _lib.launches["take_table"] == 1
+                assert torch.equal(got, gather_kernel.take_table_plain(table, idx, transpose_out))
     with pytest.raises(ValueError):
         gather_kernel.take_table_cuda(torch.zeros((13, 8), device=dev), idx)
     with pytest.raises(ValueError):

@@ -73,18 +73,34 @@ def test_join_candidates_plain_matches_pallas(rng):
     assert got.overflow.any() and got.ok[:, 1].any()
 
 
-def test_gather_rows_plain_matches_pallas(rng):
-    """Indices come pre-sanitized to [0, S) (the pipeline maps invalid lanes to 0)."""
-    for f, r, s in ((5, 4, 64), (2, 10, 256)):
-        src = rng.normal(size=(f, r, s)).astype(np.float32)
-        idx = rng.integers(0, s, (f, r, s)).astype(np.int32)
-        ref = jgk.gather_rows(jnp.asarray(src), jnp.asarray(idx), interpret=True)
-        np.testing.assert_array_equal(tgk.gather_rows(T(src), T(idx)).numpy(), np.asarray(ref))
-    a = rng.integers(0, 1000, (4, 128)).astype(np.int32)
-    i = rng.integers(0, 128, (4, 128)).astype(np.int32)
-    (ga,) = tgk.take_lanes([T(a)], [T(i)])
-    assert ga.dtype == torch.int32
-    np.testing.assert_array_equal(ga.numpy(), np.take_along_axis(a, i, 1))
+@pytest.mark.parametrize("f,s,d", [(5, 64, 2), (2, 256, 10), (3, 100, 2), (4, 100, 10),
+                                   (3, 50, 3)])
+def test_gather_rows_plain_matches_pallas(rng, f, s, d):
+    """Records (F, S, D) gathered by one index row a frame, against the JAX
+    kernel given the same data as (F, D, S) rows and the index repeated over
+    D. S = 100 is ragged (under one 128-lane tile); D = 3 is a width the
+    pipeline does not use, which the port takes all the same. The port clips
+    indices to [0, S - 1]; the JAX kernel needs them pre-sanitized, so it
+    gets the clipped ones. Exact."""
+    src = rng.normal(size=(f, s, d)).astype(np.float32)
+    idx = rng.integers(-4, s + 4, (f, s)).astype(np.int32)
+    safe = np.clip(idx, 0, s - 1)
+    ref = jgk.gather_rows(jnp.asarray(src.transpose(0, 2, 1)),
+                          jnp.asarray(np.repeat(safe[:, None, :], d, axis=1)), interpret=True)
+    got = tgk.gather_rows(T(src), T(idx))
+    assert got.shape == (f, s, d)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref).transpose(0, 2, 1))
+
+
+def test_gather_rows_reads_a_batch_slice_in_place(rng):
+    """(B, F, S, D) with strided leading axes (the serving batch's frame
+    slice) gives what the contiguous copy gives, frame by frame."""
+    full = T(rng.normal(size=(3, 7, 64, 10)).astype(np.float32))
+    idx = T(rng.integers(0, 64, (3, 5, 64)).astype(np.int32))
+    got = tgk.gather_rows(full[:, 1:-1], idx)
+    ref = tgk.gather_rows(full[:, 1:-1].reshape(15, 64, 10).contiguous(), idx.reshape(15, 64))
+    assert got.shape == (3, 5, 64, 10)
+    np.testing.assert_array_equal(got.reshape(15, 64, 10).numpy(), ref.numpy())
 
 
 def _k4_inputs(frames, slots, seed_motion=6.0):
@@ -175,7 +191,7 @@ def test_wrappers_never_fall_back():
     with pytest.raises(ValueError, match="CUDA"):
         tfk.join_candidates(i, b, i, b, 2, backend="cuda")
     with pytest.raises(ValueError, match="CUDA"):
-        tgk.gather_rows_cuda(torch.zeros((1, 1, 4)), torch.zeros((1, 1, 4), dtype=torch.int32))
+        tgk.gather_rows_cuda(torch.zeros((1, 4, 2)), torch.zeros((1, 4), dtype=torch.int32))
     _lib.reset_launches()
     tmk.match_pairs(x, m, x, m)
     assert all(v == 0 for v in _lib.launches.values())

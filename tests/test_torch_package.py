@@ -46,8 +46,9 @@ def test_port_sources_never_import_jax():
             if f.endswith(".py"):
                 with open(os.path.join(dirpath, f)) as fh:
                     assert not pat.search(fh.read()), f
-    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
-        assert not pat.search(fh.read())
+    for script in ("chip_smoke.py", "chip_ab.py"):
+        with open(os.path.join(ROOT, script)) as fh:
+            assert not pat.search(fh.read()), script
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -57,6 +58,16 @@ def test_chip_smoke_fails_without_a_card():
                          text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_chip_ab_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card; chip_ab.py runs for real there")
+    for mode in ("serving", "launch"):
+        res = subprocess.run([sys.executable, "chip_ab.py", mode, ROOT, "--pairs", "1"], cwd=ROOT,
+                             capture_output=True, text=True, timeout=120)
+        assert res.returncode != 0
+        assert '"ab"' not in res.stdout
 
 
 def test_default_device_needs_cuda():

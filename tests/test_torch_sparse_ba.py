@@ -69,6 +69,23 @@ def test_take_table_clips_and_takes_twelve_rows(rng):
     np.testing.assert_array_equal(got, np.concatenate([np.asarray(top), np.asarray(bot)]))
 
 
+@pytest.mark.parametrize("r,t,n,transpose_out", [(6, 512, 5000, True), (12, 512, 3000, False),
+                                                 (3, 1024, 257, True), (8, 128, 700, False)])
+def test_take_table_strided_plain_matches_pallas(rng, r, t, n, transpose_out):
+    """The table as the sparse-BA step hands it over: the transpose of an
+    (F, R) tensor, a strided view, with out-of-range indices (clipped at a
+    whole-tile T by both packages); the output in either layout. Exact."""
+    rows = rng.normal(size=(t, r)).astype(np.float32)
+    idx = rng.integers(-3, t + 3, n).astype(np.int32)
+    ref = np.concatenate([np.asarray(jgk.take_table(jnp.asarray(rows.T[i:i + 8]), jnp.asarray(idx),
+                                                    interpret=True)) for i in range(0, r, 8)])
+    table = T(rows).T
+    assert not table.is_contiguous()
+    got = tgk.take_table(table, T(idx), transpose_out=transpose_out)
+    assert got.shape == ((n, r) if transpose_out else (r, n))
+    np.testing.assert_array_equal(got.numpy(), ref.T if transpose_out else ref)
+
+
 @pytest.mark.parametrize("n,r,t", [(5000, 6, 512), (3000, 36, 16), (700, 9, 1024)])
 def test_segment_sum_small_plain_matches_pallas(rng, n, r, t):
     """With dropped rows (id T) and ids below 0: rtol 2e-5, atol 1e-4."""
@@ -107,7 +124,8 @@ def test_frame_helpers_choose_by_device_alone(monkeypatch):
 
     calls = []
     monkeypatch.setattr(tsba.gather_kernel, "take_table",
-                        lambda table, idx, backend: calls.append(("K10", backend)) or table[:, :1])
+                        lambda table, idx, backend, transpose_out: calls.append(("K10", backend))
+                        or table[:, :1])
     monkeypatch.setattr(tsba.segsum_kernel, "segment_sum_small",
                         lambda v, seg, t, backend: calls.append(("K9", backend)) or v[:1])
     fi = torch.zeros(5, dtype=torch.int32)

@@ -380,12 +380,8 @@ def _run_fused(camera: Camera, config: VOConfig, x_curr, tri_points, tri_valid,
     safe1 = torch.where(corr_all.valid, corr_all.idx1, 0)
     safe2 = torch.where(corr_all.valid, corr_all.idx2, 0)
     with stage("pixel_gathers"):
-        px1, py1, px2, py2 = gather_kernel.take_lanes(
-            [prev.points[..., 0], prev.points[..., 1], cur.points[..., 0], cur.points[..., 1]],
-            [safe1, safe1, safe2, safe2], backend=backend,
-        )
-        prev_al = torch.stack([px1, py1], dim=-1)
-        cur_al = torch.stack([px2, py2], dim=-1)
+        prev_al = gather_kernel.gather_rows(prev.points, safe1, backend=backend)
+        cur_al = gather_kernel.gather_rows(cur.points, safe2, backend=backend)
     with stage("frame_loop"):
         poses, tri_all, tri_ok_all, solver_stats = frame_kernel.track_frames(
             camera.camera_matrix, camera.params(), x_curr,
@@ -397,15 +393,8 @@ def _run_fused(camera: Camera, config: VOConfig, x_curr, tri_points, tri_valid,
             min_num_inliers=config.min_num_inliers, min_iterations=config.gn_min_iterations,
             backend=backend, planar=config.planar, cam_in_robot=config.planar_mount(),
         )
-    d_app = cur.appearances.shape[-1]
     with stage("appearance_gathers"):
-        tri_apps_all = torch.stack(
-            gather_kernel.take_lanes(
-                [cur.appearances[..., j] for j in range(d_app)], [safe2] * d_app,
-                backend=backend,
-            ),
-            dim=-1,
-        )
+        tri_apps_all = gather_kernel.gather_rows(cur.appearances, safe2, backend=backend)
     return FrameOutput(
         pose=poses,
         num_matches=corr_all.valid.sum(dim=1).to(torch.int32),

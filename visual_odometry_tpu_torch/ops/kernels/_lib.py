@@ -7,7 +7,9 @@ root, named by a hash of the sources and flags. A build writes into a fresh
 temporary directory and ``os.replace``-s the finished library into place, so
 concurrent processes never load a half-written file. The library has a plain
 C interface and is loaded with ``ctypes``; every entry point launches on
-PyTorch's current stream and returns ``cudaGetLastError()``.
+PyTorch's current stream and returns ``cudaGetLastError()``. A launch takes
+no lock once the library is loaded and enters no device context when its
+tensors are on the current device.
 
 Nothing here runs at import: a CPU host imports this module, never builds.
 """
@@ -77,14 +79,17 @@ def cuda_device(t: torch.Tensor) -> torch.device:
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on ``device``."""
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: one test on the launch path, the message built only for a
+    tensor that fails it."""
+    if (t.dtype is not dtype or t.shape != tuple(shape) or t.device != device
+            or not t.is_contiguous()):
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype is not dtype:
+            raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        if t.shape != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
         raise ValueError(f"{name} must be contiguous")
 
 
@@ -151,10 +156,11 @@ def build() -> tuple:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "vo_match_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vo_join_candidates": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "vo_gather_rows": [_P, _P, _P, ctypes.c_longlong, _I, _P],
+    "vo_gather_rows": [_P] * 3 + [_I] * 4 + [_L, _L, _P],
     "vo_track_frames": [_P] * 12 + [_I] * 5 + [_P],
     "vo_track_frames_planar": [_P] * 12 + [_I] * 5 + [_P],
     "vo_picp_solve": [_P] * 6 + [_I] * 3 + [_P],
@@ -162,18 +168,24 @@ _SIGNATURES = {
     "vo_best_match": [_P] * 7 + [_I] * 5 + [_P],
     "vo_track_frames_batched": [_P] * 13 + [_I] * 6 + [_P],
     "vo_track_frames_batched_planar": [_P] * 13 + [_I] * 6 + [_P],
-    "vo_segment_sum": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
-    "vo_take_table": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+    "vo_segment_sum": [_P, _P, _P, _L, _I, _I, _P],
+    "vo_take_table": [_P, _L, _L, _P, _P, _L, _I, _I, _I, _P],
     "vo_picp_linearize": [_P] * 5 + [_I, _P],
 }
 
 _lib = None
 _lib_lock = threading.Lock()
+# The entry points by symbol, and the current-device and current-stream
+# getters, set once with the library; a launch reads them without the lock.
+_entries: dict = {}
+_current_device = _raw_stream = None
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    global _lib
+    global _lib, _current_device, _raw_stream
+    if _lib is not None:
+        return _lib
     with _lib_lock:
         if _lib is None:
             path, _, _ = build()
@@ -182,21 +194,32 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                _entries[name] = fn
             lib.vo_error_string.argtypes = [ctypes.c_int]
             lib.vo_error_string.restype = ctypes.c_char_p
+            # The current device's index, and the cudaStream_t of a device's
+            # current stream as an int without building a torch.cuda.Stream.
+            _current_device = getattr(torch._C, "_cuda_getDevice", torch.cuda.current_device)
+            _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+                lambda index: torch.cuda.current_stream(index).cuda_stream)
             _lib = lib
     return _lib
 
 
 def launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
     """Call a kernel entry point on ``device``'s current stream; raise on a
-    refused launch, count a successful one."""
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, symbol)(*args, stream)
+    refused launch, count a successful one. The device context is entered
+    only when ``device`` is not the current device."""
+    if _lib is None:
+        library()
+    fn = _entries[symbol]
+    index = device.index
+    if index == _current_device():
+        code = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(device):
+            code = fn(*args, _raw_stream(_current_device()))
     if code != 0:
-        msg = lib.vo_error_string(code).decode()
+        msg = _lib.vo_error_string(code).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {code} ({msg})")
     launches[kernel] += 1
-

@@ -9,7 +9,8 @@ independent sequences. Two forms:
   batch, then ``pipeline.initialize`` on each pair); the pose-independent
   stages see the batch flattened into their frame axis — one K1 launch over
   the ``B*(F-2)`` consecutive pairs, one K2 over ``B*(F-2)`` frames, K3 once
-  for the pixels and once for the appearances — and the frame loops run as
+  for each side's pixels and once for the appearances, reading the batch's
+  frame slices in place — and the frame loops run as
   one K8 launch, one CTA per sequence
   (``ops/kernels/frame_kernel.track_frames_batched``). The chain products and
   the ``merge_stream`` fold then run per sequence.
@@ -51,7 +52,6 @@ def _run_serving(camera: Camera, config: VOConfig, points, appearances, masks
     """The batched tracking program, every stage batch-aware; mirrors
     ``pipeline._run`` stage by stage with a leading sequence axis."""
     n, f, s, _ = points.shape
-    d = appearances.shape[-1]
     backend = config.scan_backend
     ids = torch.full(masks.shape, -1, dtype=torch.int32, device=masks.device)
     frames_all = pipeline.FrameData(points, appearances, masks, ids)
@@ -104,16 +104,13 @@ def _run_serving(camera: Camera, config: VOConfig, points, appearances, masks
             idx=cand_flat.idx.reshape(n, f - 2, -1, s), ok=cand_flat.ok.reshape(n, f - 2, -1, s),
             overflow=cand_flat.overflow.reshape(n, f - 2, s))
 
-    # Lane-aligned pixel rows, one gather launch.
-    safe1 = torch.where(corr_all.valid, corr_all.idx1, 0)
-    safe2 = torch.where(corr_all.valid, corr_all.idx2, 0)
+    # Lane-aligned pixel rows, a gather launch each; the (n, f - 2) frame
+    # slices of the batch are read in place.
+    safe1 = torch.where(corr_all.valid, corr_all.idx1, 0).reshape(n, f - 2, s)
+    safe2 = torch.where(corr_all.valid, corr_all.idx2, 0).reshape(n, f - 2, s)
     with stage("pixel_gathers"):
-        prev_pts, cur_pts = flat(prev.points), flat(rest.points)
-        px1, py1, px2, py2 = gather_kernel.take_lanes(
-            [prev_pts[..., 0], prev_pts[..., 1], cur_pts[..., 0], cur_pts[..., 1]],
-            [safe1, safe1, safe2, safe2], backend=backend)
-        prev_al = torch.stack([px1, py1], dim=-1).reshape(n, f - 2, s, 2)
-        cur_al = torch.stack([px2, py2], dim=-1).reshape(n, f - 2, s, 2)
+        prev_al = gather_kernel.gather_rows(prev.points, safe1, backend=backend)
+        cur_al = gather_kernel.gather_rows(rest.points, safe2, backend=backend)
 
     with stage("frame_loop"):
         poses, tri_all, tri_ok_all, solver_stats = frame_kernel.track_frames_batched(
@@ -125,11 +122,7 @@ def _run_serving(camera: Camera, config: VOConfig, points, appearances, masks
             min_num_inliers=config.min_num_inliers, min_iterations=config.gn_min_iterations,
             backend=backend, planar=config.planar, cam_in_robot=config.planar_mount())
     with stage("appearance_gathers"):
-        rest_apps = flat(rest.appearances)
-        tri_apps_all = torch.stack(
-            gather_kernel.take_lanes([rest_apps[..., j] for j in range(d)], [safe2] * d,
-                                     backend=backend),
-            dim=-1).reshape(n, f - 2, s, d)
+        tri_apps_all = gather_kernel.gather_rows(rest.appearances, safe2, backend=backend)
 
     outs = pipeline.FrameOutput(
         pose=poses,

@@ -32,10 +32,13 @@ Kernels. For CUDA tensors every frame-space gather and sum goes through K10
 (``ops/kernels/segsum_kernel.segment_sum_small``): the 12 pose rows of every
 observation (one K10 launch of 12 rows where the JAX code needs two of
 8 + 4), H_pp, b_p, the preconditioner's diagonal correction, and in every CG
-matvec one K10 and one K9. The choice is by the tensors' device alone. Both
-kernels hold their frame table in shared memory and take F <= 1024: a CUDA
-problem with more poses raises their ValueError (the JAX package gives way to
-its plain scatter there; the port never runs a plain version on the card).
+matvec one K10 and one K9. The choice is by the tensors' device alone. K10
+reads the (F, R) table in place through its strides and writes the layout
+its consumer reads ((12, N) for the pose rows, (N, 6) in the CG), so no
+transposing copy sits beside it. K9 holds its frame table in shared memory;
+both take F <= 1024: a CUDA problem with more poses raises their ValueError
+(the JAX package gives way to its plain scatter there; the port never runs a
+plain version on the card).
 For CPU tensors, plain indexing and ``index_add_``.
 
 ``pack_problem`` repacks the observations into a fixed-degree landmark-major
@@ -81,11 +84,15 @@ class SparseBAStats(NamedTuple):
     cg_residual: torch.Tensor  # () final CG relative residual of the pose solve
 
 
-def _gather_frame_rows(v: torch.Tensor, frame_idx: torch.Tensor) -> torch.Tensor:
-    """(F, R) table gathered to (N, R) by frame id: K10 on the card."""
+def _gather_frame_rows(v: torch.Tensor, frame_idx: torch.Tensor,
+                       by_row: bool = False) -> torch.Tensor:
+    """(F, R) table gathered by frame id to (N, R), or to (R, N) with
+    ``by_row``: K10 on the card, which reads ``v`` in place through its
+    strides and writes the layout asked for."""
     if v.is_cuda:
-        return gather_kernel.take_table(v.T.contiguous(), frame_idx, backend="cuda").T
-    return v[frame_idx.long()]
+        return gather_kernel.take_table(v.T, frame_idx, backend="cuda", transpose_out=not by_row)
+    out = v[frame_idx.long()]
+    return out.T if by_row else out
 
 
 def _segsum_frame_rows(vals: torch.Tensor, frame_idx: torch.Tensor, f: int) -> torch.Tensor:
@@ -164,7 +171,7 @@ def _per_obs_system(camera_matrix, poses, landmarks, frame_idx, lm_idx, uv, obs_
     safe_l = torch.where(obs_mask, lm_idx, 0)
     f = poses.shape[0]
     tab = poses[:, :3, :4].reshape(f, 12)
-    pr = _gather_frame_rows(tab, safe_f).T               # (12, N): K10 on the card
+    pr = _gather_frame_rows(tab, safe_f, by_row=True)    # (12, N): K10 on the card
     p = _gather_lm(landmarks, safe_l, uv.shape[0], lm_degree)  # (N, 3)
     k = camera_matrix
     wx, wy, wz = p[:, 0], p[:, 1], p[:, 2]
