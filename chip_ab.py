@@ -3,6 +3,8 @@ processes.
 
     python3 chip_ab.py serving OTHER_ROOT [--pairs 5] [--reps 5]
     python3 chip_ab.py launch OTHER_ROOT [--pairs 3] [--reps 200]
+    python3 chip_ab.py kernels OTHER_ROOT [--pairs 3] [--reps 5]
+    python3 chip_ab.py phases
 
 Runs one worker for OTHER_ROOT and one for this checkout in the order other,
 this, this, other, other, this, ... (``--pairs`` of each), every worker a
@@ -19,11 +21,34 @@ the port since its serving slice runs it.
 
 ``launch``: the wrappers of K3 at path B's appearance (510 x 1024 x 10) and
 pixel (510 x 1024 x 2) gathers and of K10 as a sparse-BA step calls it
-(R = 12 into (12, N), R = 6 into (N, 6), N = 592,896 slots, T = 512), of K6
-at N = 1024 and of K11 at N = 8192, beside ``torch.gather`` and
+(R = 12 into (12, N), R = 6 into (N, 6), N = 592,896 slots, T = 512), of K9
+at the same N and T (R = 36 and 6; over one plan of the ids in a checkout
+that makes plans), of K6 at N = 1024 and of K11 at N = 8192, beside
+``torch.gather`` and
 ``index_select`` on the same inputs: ``ms``, CUDA events around one call,
 and ``host_ms``, the host clock around one call with no sync, each the median
 of ``--reps``. Both checkouts need K3's record form and K10's strided table.
+
+``kernels``: the frame-loop kernels and K1 through each checkout's wrappers,
+on inputs this checkout builds once (chip_smoke.py's, in
+build/chip_ab/kernels_inputs.pt): K1 at path B's 510 pairs and at its
+bootstrap pair (B = 1), K4 on path B (1,024 slots x 510 tracked frames; also
+its first 128 frames, whose GN rounds the plain version counts once, for
+``us_per_gn_round``), K5 on path D and K8 on path E (64 sequences x 128 slots
+x 126 frames); ``ms`` is the median of ``--reps`` CUDA-event times. Each
+output's SHA-256 shows whether the two checkouts agree bit for bit. Any
+checkout of the port since its serving slice runs it.
+
+``phases`` (no OTHER_ROOT): K4's round broken into phases on path B. It
+builds csrc/track_frames.cu six times into build/vo_torch_kernels_diag/: as
+the package builds it (a cluster of 4 CTAs at 1,024 lanes), on one CTA
+(-DVO_TRACK_CLUSTER_MAX=1), and on one CTA with the former warp sum of 30
+shuffle-down trees (-DVO_GN_TREE_SUMS), each with and without
+-DVO_GN_PHASES (clock64() stamps, gn_loop.cuh); it prints each build's
+registers and spill stores, its ms (CUDA events, median of ``--reps``),
+whether its outputs equal the package's K4 bit for bit, and for the stamped
+builds the cycles a round spends in each phase (averaged over a cluster's
+CTAs). Never built or loaded by the package.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -31,6 +56,7 @@ Needs one CUDA card; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -94,7 +120,7 @@ def _launch(reps: int) -> dict:
     import torch
 
     import chip_smoke   # the worker's own root is first on sys.path
-    from visual_odometry_tpu_torch.ops.kernels import gather_kernel, picp_kernel
+    from visual_odometry_tpu_torch.ops.kernels import gather_kernel, picp_kernel, segsum_kernel
 
     device = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -118,12 +144,231 @@ def _launch(reps: int) -> dict:
         out[f"k10_r{r}_index_select"] = _timings(
             (lambda: torch.index_select(rows, 0, idx64)) if transpose_out
             else (lambda: torch.index_select(rows.T, 1, idx64)), reps)
+    # K9 as a sparse-BA step calls it, over one plan of the ids where the
+    # checkout makes plans (made outside the timing, as a run makes it once).
+    seg = tensor(rng.integers(0, 513, 592_896).astype(np.int32))
+    plan = segsum_kernel.plan_segments(seg, 512) if hasattr(segsum_kernel, "plan_segments") else None
+    for r in (36, 6):
+        vals = tensor(rng.normal(size=(592_896, r)).astype(np.float32))
+        kw = {} if plan is None else {"plan": plan}
+        out[f"k9_r{r}"] = _timings(lambda: segsum_kernel.segment_sum_small(vals, seg, 512, **kw),
+                                   reps)
     args, _ = chip_smoke.solve_problem(1024, False, device)
     out["k6_n1024"] = _timings(lambda: picp_kernel.solve_fused(*args, backend="cuda"), reps)
     cam, pts = chip_smoke.linearize_problem(8192, device, seed=1)
     head = (cam.camera_matrix, cam.world_in_camera, cam.params())
     out["k11_n8192"] = _timings(lambda: picp_kernel.linearize(*head, *pts, 1e4), reps)
     return out
+
+
+KERNEL_INPUTS = os.path.join(ROOT, "build", "chip_ab", "kernels_inputs.pt")
+K4_HEAD_FRAMES = 128
+
+
+def _ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _sha(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _k8_args(camera, config, seqs):
+    """K8's arguments over the sequences, as chip_smoke.compare_serving builds them."""
+    import torch
+
+    import chip_smoke
+    from visual_odometry_tpu_torch.ops.kernels import frame_kernel
+
+    rows = [chip_smoke.kernel_inputs(camera, config, *(x[i] for x in seqs))["track_frames"]
+            for i in range(seqs[0].shape[0])]
+    stack = lambda k: torch.stack([a[k] for a in rows]).contiguous()   # noqa: E731
+    cand = frame_kernel.JoinCandidates(
+        *(torch.stack([a[3][q] for a in rows]).contiguous() for q in range(3)))
+    pose0 = torch.stack([a[0][28:40] for a in rows]).contiguous()
+    return (rows[0][0], pose0, stack(1), stack(2), cand, stack(4), stack(5), stack(6),
+            config.gn_iterations, config.gn_min_iterations, config.planar)
+
+
+def _cpu(args):
+    return tuple(tuple(x.cpu() for x in a) if isinstance(a, tuple)
+                 else (a.cpu() if hasattr(a, "cpu") else a) for a in args)
+
+
+def _prepare_kernel_inputs() -> None:
+    """Build the ``kernels`` inputs once with this checkout's chip_smoke.py."""
+    import torch
+
+    import chip_smoke
+    from visual_odometry_tpu_torch.ops.kernels import frame_kernel
+    from visual_odometry_tpu_torch.utils import synthetic
+    from visual_odometry_tpu_torch.utils.config import DEFAULT_CONFIG, VOConfig
+
+    device = torch.device("cuda")
+    camera = synthetic.deep_camera(device=device)
+    config = VOConfig(n_slots=1024, map_capacity=2048)
+    b = chip_smoke.kernel_inputs(camera, config, *chip_smoke.path_b_inputs(512, 1024, device))
+    mount = chip_smoke.mount_matrix("cpu").numpy()
+    d = chip_smoke.kernel_inputs(camera, config.with_planar_mount(mount),
+                                 *chip_smoke.path_d_inputs(512, 1024, device))
+    rounds = []
+    frame_kernel.track_frames_plain(*chip_smoke.head_frames(b["track_frames"], K4_HEAD_FRAMES),
+                                    rounds_out=rounds)
+    seqs = chip_smoke.serving_inputs(64, 128, 128, DEFAULT_CONFIG, device)
+    os.makedirs(os.path.dirname(KERNEL_INPUTS), exist_ok=True)
+    torch.save({"k1": _cpu(b["match_pairs"]), "k1_b1": _cpu(b["match_pairs_b1"]),
+                "k4": _cpu(b["track_frames"]), "k5": _cpu(d["track_frames"]),
+                "k8": _cpu(_k8_args(camera, DEFAULT_CONFIG, seqs)), "k4_head_rounds": rounds},
+               KERNEL_INPUTS)
+
+
+def _load_kernel_inputs(device):
+    import torch
+
+    from visual_odometry_tpu_torch.ops.kernels import frame_kernel
+
+    raw = torch.load(KERNEL_INPUTS, weights_only=False)
+
+    def card(args):
+        out = []
+        for a in args:
+            if isinstance(a, tuple):
+                out.append(frame_kernel.JoinCandidates(*(x.to(device) for x in a)))
+            else:
+                out.append(a.to(device) if hasattr(a, "to") else a)
+        return tuple(out)
+
+    return {k: (card(v) if k != "k4_head_rounds" else v) for k, v in raw.items()}
+
+
+def _kernels(reps: int) -> dict:
+    import torch
+
+    import chip_smoke   # the worker's own root is first on sys.path
+    from visual_odometry_tpu_torch.ops.kernels import frame_kernel, matcher_kernel
+
+    inp = _load_kernel_inputs(torch.device("cuda"))
+    out = {}
+    for key, args in (("k1_b510", inp["k1"]), ("k1_b1", inp["k1_b1"])):
+        out[key] = {"ms": _ms(lambda: matcher_kernel.match_pairs_cuda(*args), 4 * reps),
+                    "sha": _sha(matcher_kernel.match_pairs_cuda(*args))}
+    head = chip_smoke.head_frames(inp["k4"], K4_HEAD_FRAMES)
+    rounds = sum(inp["k4_head_rounds"])
+    head_ms = _ms(lambda: frame_kernel.track_frames_cuda(*head), reps)
+    out["k4_path_b"] = {"ms": _ms(lambda: frame_kernel.track_frames_cuda(*inp["k4"]), reps),
+                        "ms_head": head_ms, "us_per_gn_round": 1e3 * head_ms / rounds,
+                        "gn_rounds_per_frame_head": rounds / K4_HEAD_FRAMES,
+                        "sha": _sha(frame_kernel.track_frames_cuda(*inp["k4"]))}
+    out["k5_path_d"] = {"ms": _ms(lambda: frame_kernel.track_frames_cuda(*inp["k5"]), reps),
+                        "sha": _sha(frame_kernel.track_frames_cuda(*inp["k5"]))}
+    out["k8_path_e"] = {
+        "ms": _ms(lambda: frame_kernel.track_frames_batched_cuda(*inp["k8"]), reps),
+        "sha": _sha(frame_kernel.track_frames_batched_cuda(*inp["k8"]))}
+    return out
+
+
+DIAG_DIR = os.path.join(ROOT, "build", "vo_torch_kernels_diag")
+ONE_CTA = "-DVO_TRACK_CLUSTER_MAX=1"
+DIAG_VARIANTS = {"cluster": [], "cluster_stamped": ["-DVO_GN_PHASES"],
+                 "one_cta": [ONE_CTA], "one_cta_stamped": [ONE_CTA, "-DVO_GN_PHASES"],
+                 "tree_one_cta": [ONE_CTA, "-DVO_GN_TREE_SUMS"],
+                 "tree_one_cta_stamped": [ONE_CTA, "-DVO_GN_TREE_SUMS", "-DVO_GN_PHASES"]}
+PHASES = ("lane_terms", "warp_sum_and_stores", "wait_for_other_warps", "cross_warp_fold",
+          "solve", "second_barrier")
+
+
+def _build_diag() -> dict:
+    """csrc/track_frames.cu in each diagnostic variant, nvcc started together."""
+    from visual_odometry_tpu_torch.ops.kernels import _lib
+
+    os.makedirs(DIAG_DIR, exist_ok=True)
+    procs = {}
+    for name, defs in DIAG_VARIANTS.items():
+        cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, *defs, "-shared", "-o",
+               os.path.join(DIAG_DIR, name + ".so"), str(_lib.CSRC / "track_frames.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    logs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the {name} variant:\n{log}")
+        logs[name] = [line.strip() for line in log.splitlines()
+                      if "registers" in line or "spill" in line or "Compiling entry" in line]
+    return logs
+
+
+def _phases(reps: int) -> dict:
+    import ctypes
+
+    import torch
+
+    import chip_smoke
+    from visual_odometry_tpu_torch.ops.kernels import _lib, frame_kernel
+    from visual_odometry_tpu_torch.utils import synthetic
+    from visual_odometry_tpu_torch.utils.config import VOConfig
+
+    device = torch.device("cuda")
+    logs = _build_diag()
+    camera = synthetic.deep_camera(device=device)
+    args = chip_smoke.kernel_inputs(camera, VOConfig(n_slots=1024, map_capacity=2048),
+                                    *chip_smoke.path_b_inputs(512, 1024, device))["track_frames"]
+    params, tri, tri_ok, cand, prev_al, cur_al, valid, iters, min_iters, _ = args
+    f, depth, s = cand.idx.shape
+    ref = frame_kernel.track_frames_cuda(*args)
+    report = {"package_ms": _ms(lambda: frame_kernel.track_frames_cuda(*args), reps)}
+    for name in DIAG_VARIANTS:
+        lib = ctypes.CDLL(os.path.join(DIAG_DIR, name + ".so"))
+        fn = lib.vo_track_frames
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        outs = tuple(torch.empty_like(x) for x in ref)
+
+        def run():
+            code = fn(*(t.data_ptr() for t in (params, tri, tri_ok, cand.idx, cand.ok, prev_al,
+                                               cur_al, valid, *outs)),
+                      f, s, depth, int(iters), int(min_iters),
+                      torch.cuda.current_stream().cuda_stream)
+            if code != 0:
+                raise RuntimeError(f"{name}: launch failed with CUDA error {code}")
+
+        row = {"ptxas": logs[name], "ms": _ms(run, reps)}
+        run()
+        torch.cuda.synchronize()
+        row["equals_package_bitwise"] = all(torch.equal(a, b) for a, b in zip(outs, ref))
+        if "stamped" in name:
+            take = lib.vo_gn_phases_take
+            take.argtypes = [ctypes.c_void_p]
+            counts = (ctypes.c_ulonglong * 16)()
+            take(counts)                    # zero what the timed runs added
+            run()
+            torch.cuda.synchronize()
+            take(counts)
+            rounds, frames = counts[6], counts[7]
+            row["rounds"], row["frames"] = rounds, frames
+            row["cycles_per_round"] = {p: counts[i] / rounds for i, p in enumerate(PHASES)}
+            row["cycles_per_frame"] = {"join": counts[8] / frames,
+                                       "triangulation_and_stores": counts[9] / frames}
+        report[name] = row
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader"], stdout=subprocess.PIPE, text=True)
+    report["clocks_sm_now_and_max"] = smi.stdout.strip()
+    return report
 
 
 def worker(mode: str, root: str, reps: int) -> int:
@@ -136,20 +381,20 @@ def worker(mode: str, root: str, reps: int) -> int:
     from visual_odometry_tpu_torch.ops.kernels import _lib
 
     _lib.build()
-    result = _serving(reps) if mode == "serving" else _launch(reps)
+    result = {"serving": _serving, "launch": _launch, "kernels": _kernels}[mode](reps)
     print(json.dumps({"root": root, mode: result}))
     return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("serving", "launch"))
-    ap.add_argument("other")
+    ap.add_argument("mode", choices=("serving", "launch", "kernels", "phases"))
+    ap.add_argument("other", nargs="?")
     ap.add_argument("--pairs", type=int, default=None)
     ap.add_argument("--reps", type=int, default=None)
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
-    reps = a.reps or (5 if a.mode == "serving" else 200)
+    reps = a.reps or {"serving": 5, "launch": 200, "kernels": 5, "phases": 3}[a.mode]
     if a.worker:
         return worker(a.mode, os.path.abspath(a.other), reps)
     import torch
@@ -157,6 +402,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA device is available", file=sys.stderr)
         return 2
+    if a.mode == "phases":
+        print(json.dumps({"phases": _phases(reps)}))
+        return 0
+    if a.other is None:
+        ap.error(f"{a.mode} needs OTHER_ROOT")
+    if a.mode == "kernels":
+        _prepare_kernel_inputs()
     pairs = a.pairs or (5 if a.mode == "serving" else 3)
     other = os.path.abspath(a.other)
     order = [("other", "this") if i % 2 == 0 else ("this", "other") for i in range(pairs)]

@@ -7,7 +7,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
   1. environment: torch, CUDA, the card, nvcc, nvidia-smi name and power limit;
   2. build: compile csrc/*.cu with nvcc into build/vo_torch_kernels/;
   3. each kernel against its plain PyTorch version on the card, with
-     CUDA-event times and its bound on this card: K1 pair matcher, K2 join
+     CUDA-event times and its bound on this card: K1 pair matcher (path B's
+     510 pairs and its bootstrap pair, timed both, and ties across its tiles,
+     all-masked frames and NaN garbage at N = 1024 and ragged N), K2 join
      candidates, K3 record gather (path B's two pixel gathers and its
      appearance gather, also with indices past S), K4 fused frame loop and
      K5 its planar form on the main path's own inputs (S = 1024 slots x 512 frames; the plain K4/K5
@@ -19,8 +21,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      sequence against K4/K5 launched alone and its first sequence against
      the plain version over all 126 frames; K9 segment sum and K10 table gather at the sparse-BA
      corridor's shapes (N ~ 6e5, T = 512, R = 36 / 6 and 12 / 6) beside
-     index_add_ and index_select (K10 in the layouts a step uses, the table
-     read in place through its strides); K3 and K10 rows and their library calls
+     index_add_ and index_select (K9 over one plan of the frame ids, two
+     launches bit for bit alike and equal to the plain version; K10 in the
+     layouts a step uses, the table read in place through its strides); one
+     sparse-BA step at 1,536 poses on the card against the CPU's; K3 and K10 rows and their library calls
      carry device_ms (profiler) and host_ms (host clock, no sync) beside
      ms; K11 linearization at N = 1024 and 8192;
   4. path A: the reference-format applications — generate_dataset (40 frames,
@@ -106,7 +110,7 @@ K1_DIST_RTOL = 1e-5
 GN_POSE_TOL = 1e-5   # K5/K6 against their plain versions (bitwise expected)
 PLANAR_DEV_TOL = 1e-4
 K4_PLAIN_FRAMES, K5_PLAIN_FRAMES = 256, 128
-K9_RTOL, K9_ATOL = 2e-5, 1e-4    # another order of the float32 sum (tests/test_pallas_kernels.py:266)
+K9_RTOL, K9_ATOL = 2e-5, 1e-4    # K9 against index_add_, another order (tests/test_pallas_kernels.py:266)
 K11_RTOL = 1e-5                  # of the system's largest entry (bitwise expected)
 SERVE_B, SERVE_FRAMES, SERVE_SLOTS = 64, 128, 128
 BA_POSES, BA_LANDMARKS, BA_STEPS, BA_CG = 512, 100_000, 3, 64
@@ -356,6 +360,34 @@ def compare_frame_kernel(name, args, plain_frames, device, table, track):
                        us_per_gn_round=1e3 * ms_short / sum(rounds))
 
 
+def k1_edge_cases(kernel_fns, device) -> float:
+    """K1 where its tiles meet: duplicate descriptors at j and j + 128 (ties
+    across row tiles and column splits), an all-masked frame, NaN garbage in
+    masked slots, one pair at N = 1024 and a ragged N. Exact: 0.0."""
+    import torch
+
+    from visual_odometry_tpu_torch.ops.kernels import matcher_kernel
+
+    rng = np.random.default_rng(7)
+    for b, n in ((1, 1024), (3, 1000), (2, 200)):
+        a1 = rng.uniform(-1, 1, (b, n, 10)).astype(np.float32)
+        a2 = a1[:, rng.permutation(n)] + rng.normal(0, 0.02, (b, n, 10)).astype(np.float32)
+        for j in range(0, n - 128, 97):
+            a1[:, j + 128] = a1[:, j]
+            a2[:, j + 128] = a2[:, j]
+        m1 = rng.uniform(size=(b, n)) > 0.1
+        m2 = rng.uniform(size=(b, n)) > 0.1
+        m2[-1] = False
+        a1[~m1] = np.nan
+        a2[~m2] = np.nan
+        args = [torch.from_numpy(x).to(device) for x in (a1, m1, a2, m2)]
+        got = kernel_fns["match_pairs"](*args)
+        ref = matcher_kernel.match_pairs_plain(*args)
+        require(all(torch.equal(g, r) for g, r in zip(got, ref)),
+                f"K1 edge cases B={b} N={n}: the kernel differs from the plain version")
+    return 0.0
+
+
 def compare_kernels(inputs, device, kernel_fns, reps: int = 10, launch_reps: int = 50):
     """K1-K4: run each kernel and its plain version on the same inputs; returns
     {name: row fields} and raises on disagreement."""
@@ -379,14 +411,22 @@ def compare_kernels(inputs, device, kernel_fns, reps: int = 10, launch_reps: int
             err = max(err, float(diff[live].max()) if bool(live.any()) else 0.0)
         return err
 
-    a = inputs["match_pairs"]
-    err = max(k1_check(a, "B=510"), k1_check(inputs["match_pairs_b1"], "B=1"))
+    a, a1 = inputs["match_pairs"], inputs["match_pairs_b1"]
+    err = max(k1_check(a, "B=510"), k1_check(a1, "B=1"), k1_edge_cases(kernel_fns, device))
     b, n, d = a[0].shape
-    bound_ms, bound_by = bound(nbytes(*a) + 4 * b * n * 4, b * n * n * (2 * d + 3))
+    # Each distance is 2d + 3 separately rounded operations (no fused
+    # multiply-add: the function is defined by that rounding), which issue at
+    # half the FMA rate; the function needs each distance once, the kernel
+    # computes it once for each direction.
+    ops = b * n * n * (2 * d + 3)
+    bound_ms, bound_by = bound(nbytes(*a) + 4 * b * n * 4, ops, PEAK_FP32 / 2)
     out["match_pairs"] = dict(
         max_abs_err=err, ms=time_ms(lambda: kernel_fns["match_pairs"](*a), device, reps),
         plain_ms=time_ms(lambda: matcher_kernel.match_pairs_plain(*a), device, 3),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, pairs=b,
+        bound_ms_both_directions=bound(0, 2 * ops, PEAK_FP32 / 2)[0],
+        ms_b1=time_ms(lambda: kernel_fns["match_pairs"](*a1), device, reps),
+        bound_ms_b1=bound(nbytes(*a1) + 4 * n * 4, n * n * (2 * d + 3), PEAK_FP32 / 2)[0])
 
     a = inputs["join_candidates"]
     kc = kernel_fns["join_candidates"](*a)
@@ -668,28 +708,37 @@ def compare_sparse_ba_kernels(problem, device, table, reps: int = 10, launch_rep
     f = problem.poses.shape[0]
     n = problem.uv.shape[0]
     rng = np.random.default_rng(0)
-    seg = torch.where(problem.obs_mask, problem.frame_idx, f).contiguous()
+    seg = torch.where(problem.obs_mask, problem.frame_idx, f).to(torch.int32).contiguous()
     seg64 = seg.long()
+    plan = segsum_kernel.plan_segments(seg, f)     # made once, as a BA run makes it
     row = dict(max_abs_err=0.0)
     for r in (36, 6):
         vals = torch.from_numpy(rng.normal(size=(n, r)).astype(np.float32)).to(device)
-        got = segsum_kernel.segment_sum_small_cuda(vals, seg, f)
-        ref = segsum_kernel.segment_sum_small_plain(vals, seg, f)
-        again = segsum_kernel.segment_sum_small_cuda(vals, seg, f)
+        got = segsum_kernel.segment_sum_small_cuda(vals, seg, f, plan)
+        again = segsum_kernel.segment_sum_small_cuda(vals, seg, f, plan)
+        ref = segsum_kernel.segment_sum_small_plain(vals, seg, f, plan)
+        lib = torch.zeros((f + 1, r), device=device).index_add_(0, seg64, vals)[:f]
         err = float((got - ref).abs().max())
-        require(bool(torch.isclose(got, ref, rtol=K9_RTOL, atol=K9_ATOL).all()),
-                f"K9 R={r}: sums differ from the plain version by {err}")
-        bound_ms, bound_by = bound(nbytes(vals, seg) + f * r * 4, n * r)
+        require(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+                f"K9 R={r}: two launches gave different bits")
+        require(torch.equal(got, ref), f"K9 R={r}: sums differ from the plain version by {err}")
+        require(bool(torch.isclose(got, lib, rtol=K9_RTOL, atol=K9_ATOL).all()),
+                f"K9 R={r}: sums differ from index_add_ beyond rtol {K9_RTOL}, atol {K9_ATOL}")
+        bound_ms, bound_by = bound(nbytes(vals, plan.order, plan.offsets) + f * r * 4, n * r)
 
         def library():
             return torch.zeros((f + 1, r), device=device).index_add_(0, seg64, vals)
 
         row[f"r{r}"] = dict(
-            ms=time_ms(lambda: segsum_kernel.segment_sum_small_cuda(vals, seg, f), device, reps),
-            plain_ms=time_ms(lambda: segsum_kernel.segment_sum_small_plain(vals, seg, f), device,
-                             reps),
+            ms=time_ms(lambda: segsum_kernel.segment_sum_small_cuda(vals, seg, f, plan), device,
+                       reps),
+            ms_plan_included=time_ms(lambda: segsum_kernel.segment_sum_small_cuda(vals, seg, f),
+                                     device, reps),
+            plain_ms=time_ms(lambda: segsum_kernel.segment_sum_small_plain(vals, seg, f, plan),
+                             device, reps),
             library_ms=time_ms(library, device, reps), bound_ms=bound_ms, bound_by=bound_by,
-            max_abs_err=err, run_to_run_max_abs_diff=float((got - again).abs().max()))
+            max_abs_err=err, run_to_run_identical_bits=True,
+            max_abs_diff_vs_index_add=float((got - lib).abs().max()))
         row["max_abs_err"] = max(row["max_abs_err"], err)
     row.update({k: v for k, v in row["r36"].items() if k != "max_abs_err"})
     row.update(rows=n, segments=f)
@@ -729,6 +778,53 @@ def compare_sparse_ba_kernels(problem, device, table, reps: int = 10, launch_rep
     row.update(row["r12"])
     row.update(columns=n, table_columns=f)
     table["take_table"] = row
+
+
+def compare_wide_sparse_ba(device, table, poses: int = 1536, landmarks: int = 20_000,
+                           cg: int = 10):
+    """Sparse BA past the 1,024 poses K9 and K10 once refused:
+    ``generate_ba_corridor(f=1536, l=20,000)``, packed, one step of ``cg``
+    CG iterations on the card (K9/K10 launch counts reckoned) against the
+    same step on the CPU through the plain frame helpers, at the tolerances
+    of tests/test_torch_cuda.py::test_sparse_ba_step_past_1024_poses_on_the_card:
+    landmarks 5e-4, rotations 1e-4, chi 1e-4 relative, translations 1e-4 or
+    the CPU step's own distance from its float64 twin if that is larger."""
+    import torch
+
+    from visual_odometry_tpu_torch.ops.kernels import _lib
+    from visual_odometry_tpu_torch.parallel import sparse_ba
+    from visual_odometry_tpu_torch.utils import synthetic
+
+    k, problem, n_live = synthetic.generate_ba_corridor(f=poses, l=landmarks)
+    k = torch.from_numpy(k)
+    work, degree = sparse_ba.pack_problem(problem)
+    kw = dict(cg_iterations=cg, cg_tolerance=0.0, lm_degree=degree)
+    ref, ref_stats = sparse_ba.sparse_ba_step(k, work, **kw)
+    w64 = work._replace(poses=work.poses.double(), landmarks=work.landmarks.double(),
+                        uv=work.uv.double())
+    exact, _ = sparse_ba.sparse_ba_step(k.double(), w64, **kw)
+    on_card = sparse_ba.SparseBAProblem(*(x.to(device) for x in work))
+    _lib.reset_launches()
+    got, stats = sparse_ba.sparse_ba_step(k.to(device), on_card, **kw)
+    sync(device)
+    ran = (_lib.launches["take_table"], _lib.launches["segment_sum"])
+    require(ran == (2 + cg, 4 + cg), f"wide sparse BA: K10/K9 launched {ran}, "
+                                     f"reckoned {(2 + cg, 4 + cg)}")
+    diff = (got.poses.cpu() - ref.poses).abs()
+    rot_err, t_err = float(diff[:, :3, :3].max()), float(diff[:, :3, 3].max())
+    t_tol = max(1e-4, float((ref.poses[:, :3, 3] - exact.poses[:, :3, 3]).abs().max()))
+    lm_err = float((got.landmarks.cpu() - ref.landmarks).abs().max())
+    chi_rel = abs(float(stats.chi) - float(ref_stats.chi)) / float(ref_stats.chi)
+    require(rot_err <= 1e-4 and t_err <= t_tol and lm_err <= 5e-4 and chi_rel <= 1e-4,
+            f"wide sparse BA: the card's step differs from the CPU's (rotations {rot_err}, "
+            f"translations {t_err} against {t_tol}, landmarks {lm_err}, chi {chi_rel} relative)")
+    table["segment_sum"]["wide_sparse_ba"] = dict(
+        poses=poses, landmarks=landmarks, observations=n_live, cg_iterations=cg,
+        rotation_max_abs_diff_vs_cpu=rot_err, translation_max_abs_diff_vs_cpu=t_err,
+        translation_tolerance=t_tol, landmark_max_abs_diff_vs_cpu=lm_err,
+        chi_rel_diff_vs_cpu=chi_rel)
+    print(f"sparse BA at {poses} poses on the card: translations within {t_err:.2e} "
+          f"(tolerance {t_tol:.2e}), landmarks within {lm_err:.2e} of the CPU step")
 
 
 def linearize_problem(n: int, device, seed: int = 0):
@@ -1228,14 +1324,16 @@ def run_path_f(work_dir: str, device, ba_problem, require_launches: bool = True)
     packed, degree = sparse_ba.pack_problem(problem)
     require(degree is not None, "path F(2): the corridor did not pack")
     for label, work, deg in (("packed", packed, degree), ("unpacked", problem, None)):
-        sparse_ba.sparse_ba_step(k, work, cg_iterations=2, cg_tolerance=0.0, lm_degree=deg)
+        frames = sparse_ba.plan_frames(work)          # K9's plan, once a run
+        sparse_ba.sparse_ba_step(k, work, cg_iterations=2, cg_tolerance=0.0, lm_degree=deg,
+                                 frames=frames)
         sync(device)                                                    # warm-up
         _lib.reset_launches()
         chis, residuals = [], []
         t0 = time.perf_counter()
         for _ in range(BA_STEPS):
             work, stats = sparse_ba.sparse_ba_step(k, work, cg_iterations=BA_CG, cg_tolerance=0.0,
-                                                   lm_degree=deg)
+                                                   lm_degree=deg, frames=frames)
             chis.append(stats.chi)
             residuals.append(stats.cg_residual)
         sync(device)
@@ -1538,6 +1636,7 @@ def main() -> int:
         serving[cfg.planar] = (cfg, seqs)
     ba_problem = corridor(device)
     compare_sparse_ba_kernels(ba_problem[1], device, table)
+    compare_wide_sparse_ba(device, table)
     compare_linearize(device, table)
     torch.cuda.empty_cache()
     print("kernels vs plain versions: all agree")

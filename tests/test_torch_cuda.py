@@ -12,8 +12,8 @@ their lane sums in the plain versions' order, both sides use a correctly
 rounded sqrt and the card's sin/cos, so their poses are held to 1e-5 (bitwise
 expected). K8 equals K4/K5 per sequence exactly (the same ``__global__``),
 K10 is a copy and exact, K11 sums in its plain version's order (1e-5 of the
-largest entry, bitwise expected), K9 adds with atomics in no fixed order
-(rtol 2e-5, atol 1e-4, the JAX package's tolerance for its kernel).
+largest entry, bitwise expected), K9 sums in one fixed order that its plain
+version repeats: exact, and the same bits in every launch.
 """
 
 import numpy as np
@@ -59,6 +59,32 @@ def test_match_pairs_kernel_equals_plain(dev, b, n, d):
     ref = matcher_kernel.match_pairs_plain(*args)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+def test_match_pairs_kernel_ties_across_tiles(dev):
+    """K1 spreads a pair over 128-row tiles and eight column splits: ties
+    placed across both boundaries (duplicates at j and j + 128, and j + 97)
+    keep the first index; one pair at N = 1024; an all-masked frame and NaN
+    garbage in masked slots; exact against the plain version."""
+    rng = np.random.default_rng(11)
+    for b, n in ((1, 1024), (2, 1000)):
+        a1 = rng.uniform(-1, 1, (b, n, 10)).astype(np.float32)
+        a2 = a1[:, rng.permutation(n)] + rng.normal(0, 0.02, (b, n, 10)).astype(np.float32)
+        for j in range(0, n - 128, 61):
+            a1[:, j + 128] = a1[:, j]
+            a2[:, j + 128] = a2[:, j]
+            a2[:, j + 97] = a2[:, j]
+        m1 = rng.uniform(size=(b, n)) > 0.1
+        m2 = rng.uniform(size=(b, n)) > 0.1
+        m1[-1] = False
+        a1[~m1] = np.nan
+        a2[~m2] = np.nan
+        args = [torch.from_numpy(x).to(dev) for x in (a1, m1, a2, m2)]
+        got = matcher_kernel.match_pairs_cuda(*args)
+        ref = matcher_kernel.match_pairs_plain(*args)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+        assert bool((got[2][-1] == 3.4e38).all()) and not bool(got[3][-1].any())
 
 
 @pytest.mark.parametrize("f,s,depth", [(4, 40, 1), (6, 256, 2), (3, 1024, 3)])
@@ -150,6 +176,9 @@ def _k4_args(dev, frames, slots, seed_motion=6.0):
     (200, dict(iterations=100, tol=1e-12)),
     (64, dict(iterations=12, tol=-1.0, warm_start=True, min_iterations=3)),
     (64, dict(iterations=20, tol=1e-12, kt=2e-3, keep_outliers=True)),
+    (256, dict(iterations=100, tol=1e-12)),      # a cluster of 2 CTAs
+    (1024, dict(iterations=100, tol=1e-12)),     # a cluster of 4 CTAs
+    (512, dict(iterations=12, tol=-1.0, warm_start=True, min_iterations=3)),
 ])
 def test_track_frames_kernel_equals_plain(dev, slots, opts):
     args = _k4_args(dev, 14, slots)
@@ -216,6 +245,7 @@ def _mount(dev):
     (64, dict(iterations=100, tol=1e-12)),
     (200, dict(iterations=100, tol=1e-12)),
     (64, dict(iterations=12, tol=-1.0, warm_start=True, min_iterations=3)),
+    (512, dict(iterations=100, tol=1e-12)),      # a cluster of 4 CTAs
 ])
 def test_track_frames_planar_kernel_equals_plain(dev, slots, opts):
     args = _k4_args(dev, 14, slots)
@@ -424,7 +454,7 @@ def _k8_args(dev, count, frames, slots, planar):
 
 
 @pytest.mark.parametrize("planar", [False, True])
-@pytest.mark.parametrize("count,slots", [(5, 64), (3, 200)])
+@pytest.mark.parametrize("count,slots", [(5, 64), (3, 200), (2, 512)])
 def test_track_frames_batched_kernel_equals_single_launches(dev, planar, count, slots):
     """K8 per sequence against K4/K5 launched alone: every output bit for bit;
     and against its plain version."""
@@ -485,11 +515,11 @@ def test_run_sequences_batched_cuda_equals_run_sequence(dev):
 
 @pytest.mark.parametrize("r", range(1, 13))
 def test_take_table_kernel_equals_plain(dev, r):
-    """R = 1..12 at T up to 1024, the table contiguous and as the transpose
-    of an (F, R) tensor (strided), the output in both layouts; indices past
-    both ends of T are clipped."""
+    """R = 1..12 at T up to 1500 (no limit on T), the table contiguous and
+    as the transpose of an (F, R) tensor (strided), the output in both
+    layouts; indices past both ends of T are clipped."""
     rng = np.random.default_rng(r)
-    for t, n in ((1024, 70001), (512, 4096), (40, 1000), (1, 33)):
+    for t, n in ((1500, 9000), (1025, 5000), (1024, 70001), (512, 4096), (40, 1000), (1, 33)):
         rows = torch.from_numpy(rng.normal(size=(t, r)).astype(np.float32)).to(dev)
         idx = torch.from_numpy(rng.integers(-3, t + 3, n).astype(np.int32)).to(dev)
         for table in (rows.T.contiguous(), rows.T):
@@ -500,15 +530,16 @@ def test_take_table_kernel_equals_plain(dev, r):
                 assert torch.equal(got, gather_kernel.take_table_plain(table, idx, transpose_out))
     with pytest.raises(ValueError):
         gather_kernel.take_table_cuda(torch.zeros((13, 8), device=dev), idx)
-    with pytest.raises(ValueError):
-        gather_kernel.take_table_cuda(torch.zeros((2, 1025), device=dev), idx)
 
 
 @pytest.mark.parametrize("n,r,t", [(70000, 36, 512), (5000, 6, 512), (3000, 64, 1024),
-                                   (2000, 100, 1024), (10, 9, 3)])
+                                   (2000, 100, 1024), (10, 9, 3), (9000, 36, 1025),
+                                   (12000, 7, 1500), (40, 5, 3000)])
 def test_segment_sum_kernel_close_to_plain(dev, n, r, t):
-    """Rows wider than the shared-memory table tile over blockIdx.y (R = 64
-    and 100 at T = 1024); ids outside [0, T) add nothing."""
+    """K9 equals its plain version (the same order of the sum): any R (64,
+    100 and an odd 7 included), any T (past 1,024, and with most segments
+    empty at T = 3000), ids outside [0, T) adding nothing; within rtol 2e-5,
+    atol 1e-4 of index_add_."""
     rng = np.random.default_rng(0)
     vals = torch.from_numpy(rng.normal(size=(n, r)).astype(np.float32)).to(dev)
     seg = torch.from_numpy(rng.integers(-2, t + 4, n).astype(np.int32)).to(dev)
@@ -516,10 +547,27 @@ def test_segment_sum_kernel_close_to_plain(dev, n, r, t):
     got = segsum_kernel.segment_sum_small(vals, seg, t)
     assert _lib.launches["segment_sum"] == 1
     ref = segsum_kernel.segment_sum_small_plain(vals, seg, t)
-    print(f"K9 N={n} R={r} T={t}: max |diff| = {float((got - ref).abs().max())}")
-    torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-4)
-    with pytest.raises(ValueError):
-        segsum_kernel.segment_sum_small_cuda(vals, seg, 1025)
+    assert torch.equal(got, ref)
+    keep = (seg >= 0) & (seg < t)
+    lib = torch.zeros((t + 1, r), device=dev).index_add_(0, torch.where(keep, seg, t).long(), vals)
+    torch.testing.assert_close(got, lib[:t], rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("r", [36, 6])
+def test_segment_sum_kernel_is_run_to_run_identical(dev, r):
+    """At the sparse-BA corridor's shapes (N ~ 6e5 observations over T = 512
+    frames, masked ones dropped) two launches over one plan give the same
+    bits, and equal the plain version."""
+    _, problem, _ = synthetic.generate_ba_corridor(f=512, l=100_000, device=dev)
+    f = problem.poses.shape[0]
+    seg = torch.where(problem.obs_mask, problem.frame_idx, f).to(torch.int32)
+    plan = segsum_kernel.plan_segments(seg, f)
+    rng = np.random.default_rng(r)
+    vals = torch.from_numpy(rng.normal(size=(seg.shape[0], r)).astype(np.float32)).to(dev)
+    first = segsum_kernel.segment_sum_small_cuda(vals, seg, f, plan)
+    second = segsum_kernel.segment_sum_small_cuda(vals, seg, f, plan)
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+    assert torch.equal(first, segsum_kernel.segment_sum_small_plain(vals, seg, f, plan))
 
 
 @pytest.mark.parametrize("n", [7, 100, 1024, 1500, 8192])
@@ -608,19 +656,47 @@ def test_bootstrap_keeps_every_serving_field(dev, planar):
 
 def test_sparse_ba_frame_helpers_never_give_way_on_the_card(dev):
     """On CUDA tensors the frame-space gather and sum always launch K10 and
-    K9: wide rows go through (K9 tiles any R), and past the kernels' 1,024
-    segments they raise instead of running the plain version."""
+    K9: wide rows go through (K9 takes any R), so do 1,025 and 1,500 poses
+    (the kernels' former limit was 1,024), equal to the plain versions; past
+    K10's 12 rows they raise instead of running the plain version."""
     rng = np.random.default_rng(0)
-    fi = torch.from_numpy(rng.integers(0, 40, 5000).astype(np.int32)).to(dev)
-    wide = torch.from_numpy(rng.normal(size=(5000, 100)).astype(np.float32)).to(dev)
-    _lib.reset_launches()
-    got = sparse_ba._segsum_frame_rows(wide, fi, 40)
-    assert _lib.launches["segment_sum"] == 1
-    ref = segsum_kernel.segment_sum_small_plain(wide, fi, 40)
-    torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-4)
-    with pytest.raises(ValueError, match="1024"):
-        sparse_ba._segsum_frame_rows(wide, fi, 1025)
-    with pytest.raises(ValueError, match="1024"):
-        sparse_ba._gather_frame_rows(torch.zeros((1025, 6), device=dev), fi)
+    for f in (40, 1025, 1500):
+        fi = torch.from_numpy(rng.integers(0, f, 5000).astype(np.int32)).to(dev)
+        wide = torch.from_numpy(rng.normal(size=(5000, 100)).astype(np.float32)).to(dev)
+        table = torch.from_numpy(rng.normal(size=(f, 6)).astype(np.float32)).to(dev)
+        _lib.reset_launches()
+        got = sparse_ba._segsum_frame_rows(wide, fi, f)
+        rows = sparse_ba._gather_frame_rows(table, fi)
+        assert (_lib.launches["segment_sum"], _lib.launches["take_table"]) == (1, 1)
+        assert torch.equal(got, segsum_kernel.segment_sum_small_plain(wide, fi, f))
+        assert torch.equal(rows, table[fi.long()])
     with pytest.raises(ValueError, match="12"):
         sparse_ba._gather_frame_rows(torch.zeros((40, 13), device=dev), fi)
+
+
+def test_sparse_ba_step_past_1024_poses_on_the_card(dev):
+    """One packed step at 1,536 poses through K9 and K10 (12 and 14
+    launches for 10 CG iterations) against the CPU step: landmarks within
+    5e-4, rotations within 1e-4, chi within 1e-4 relative, as in
+    test_sparse_ba_step_on_the_card_matches_the_cpu. The translations move
+    by units along this chain, where the float32 step is itself uncertain:
+    they must lie within 1e-4, or within the CPU's own distance from the
+    float64 step if that is larger."""
+    k, problem, _ = synthetic.generate_ba_corridor(f=1536, l=20_000)
+    k = torch.from_numpy(k)
+    work, degree = sparse_ba.pack_problem(problem)
+    kw = dict(cg_iterations=10, cg_tolerance=0.0, lm_degree=degree)
+    ref, ref_stats = sparse_ba.sparse_ba_step(k, work, **kw)
+    w64 = work._replace(poses=work.poses.double(), landmarks=work.landmarks.double(),
+                        uv=work.uv.double())
+    exact, _ = sparse_ba.sparse_ba_step(k.double(), w64, **kw)
+    on_card = sparse_ba.SparseBAProblem(*(x.to(dev) for x in work))
+    _lib.reset_launches()
+    got, stats = sparse_ba.sparse_ba_step(k.to(dev), on_card, **kw)
+    assert (_lib.launches["take_table"], _lib.launches["segment_sum"]) == (12, 14)
+    poses = got.poses.cpu()
+    torch.testing.assert_close(poses[:, :3, :3], ref.poses[:, :3, :3], rtol=0, atol=1e-4)
+    t_tol = max(1e-4, float((ref.poses[:, :3, 3] - exact.poses[:, :3, 3]).abs().max()))
+    assert float((poses[:, :3, 3] - ref.poses[:, :3, 3]).abs().max()) <= t_tol
+    torch.testing.assert_close(got.landmarks.cpu(), ref.landmarks, rtol=0, atol=5e-4)
+    assert abs(float(stats.chi) - float(ref_stats.chi)) <= 1e-4 * float(ref_stats.chi)

@@ -175,6 +175,94 @@ def test_block_sum_matches_a_float64_sum(rng):
                                rtol=1e-5, atol=1e-4)
 
 
+def _transposed_warp_sums(terms: np.ndarray) -> np.ndarray:
+    """csrc/gn_loop.cuh warp_sum_terms in numpy float32: terms (32, NPAD) of
+    one warp's lanes, NPAD = 32 or 16; returns what lane q holds at the end."""
+    t = terms.astype(np.float32).copy()
+    lanes = np.arange(32)
+    npad = t.shape[1]
+    if npad == 16:
+        t = t + t[lanes ^ 16]
+    o = npad // 2
+    while o:
+        upper = (lanes & o) != 0
+        send = np.where(upper[:, None], t[:, :o], t[:, o:2 * o])
+        keep = np.where(upper[:, None], t[:, o:2 * o], t[:, :o])
+        t = keep + send[lanes ^ o]
+        o //= 2
+    return t[:, 0]
+
+
+@pytest.mark.parametrize("n", [1024, 128, 100])
+@pytest.mark.parametrize("nred", [30, 12])
+def test_transposed_warp_sum_keeps_the_block_sum_order(rng, n, nred):
+    """K4-K6's warp sum is transposed (recursive halving, 31 shuffles a warp
+    instead of a shuffle-down tree a term); lane q ends with the tree's sum
+    of term q bit for bit, so the kernels' block sum is still _block_sum's:
+    the emulation, folded over the warps in warp order, equals it exactly.
+    Rows span many magnitudes and hold zeros, as dead lanes do."""
+    rows = (rng.normal(size=(nred, n)) * 10.0 ** rng.integers(-6, 7, (nred, n))).astype(np.float32)
+    rows[:, ::9] = 0.0
+    lanes = min(1024, max(64, -(-n // 32) * 32))
+    npad = 32 if nred > 16 else 16
+    padded = np.zeros((npad, lanes), np.float32)
+    padded[:nred, :n] = rows
+    acc = None
+    for w in range(lanes // 32):
+        part = _transposed_warp_sums(padded[:, 32 * w:32 * w + 32].T)[:nred]
+        acc = part if acc is None else (acc + part).astype(np.float32)
+    ref = tfk._block_sum(torch.from_numpy(rows)).numpy()
+    np.testing.assert_array_equal(acc.view(np.int32), ref.view(np.int32))
+
+
+def _k1_by_tiles(app1, mask1, app2, mask2, splits=8):
+    """K1's scan order in numpy (csrc/match_pairs.cu): each direction's rows
+    against column splits in ascending order with a strict '<' from (inf, 0),
+    the splits' results met in ascending order, a masked row (3.4e38, 0)."""
+    d = tmk.pairwise_sq_dists(torch.from_numpy(app1), torch.from_numpy(app2)).numpy()
+    d = np.where(mask1[:, :, None] & mask2[:, None, :], d, np.float32(tmk.BIG))
+    outs = []
+    for dist, rmask in ((np.swapaxes(d, 1, 2), mask2), (d, mask1)):
+        b, n, _ = dist.shape
+        chunk = -(-n // splits)
+        best = np.full((b, n), np.inf, np.float32)
+        arg = np.zeros((b, n), np.int64)
+        for w in range(splits):
+            sb = np.full((b, n), np.inf, np.float32)
+            sa = np.zeros((b, n), np.int64)
+            for j in range(w * chunk, min(n, (w + 1) * chunk)):
+                take = dist[:, :, j] < sb
+                sb = np.where(take, dist[:, :, j], sb)
+                sa = np.where(take, j, sa)
+            take = sb < best
+            best = np.where(take, sb, best)
+            arg = np.where(take, sa, arg)
+        best = np.where(rmask, best, np.float32(tmk.BIG))
+        outs += [best, np.where(rmask, arg, 0)]
+    return outs
+
+
+def test_k1_tiles_and_splits_keep_the_first_index(rng):
+    """The split-and-meet order of the redesigned K1 gives the plain version's
+    first argmin: ties placed across split and tile boundaries (j and j + 128,
+    j and j + 25), an all-masked frame, NaN garbage in masked slots."""
+    b, n = 3, 200
+    a1 = rng.uniform(-1, 1, (b, n, 10)).astype(np.float32)
+    a2 = a1[:, rng.permutation(n)] + rng.normal(0, 0.02, (b, n, 10)).astype(np.float32)
+    for j, k in ((3, 131), (10, 35), (60, 188)):
+        a1[:, k] = a1[:, j]
+        a2[:, k] = a2[:, j]
+    m1 = rng.uniform(size=(b, n)) > 0.1
+    m2 = rng.uniform(size=(b, n)) > 0.1
+    m2[2] = False
+    a1[~m1] = np.nan
+    a2[~m2] = np.nan
+    got = _k1_by_tiles(a1, m1, a2, m2)
+    ref = tmk.match_pairs_plain(*(torch.from_numpy(x) for x in (a1, m1, a2, m2)))
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r.numpy())
+
+
 def test_wrappers_never_fall_back():
     """A CPU tensor reaches the plain version only under auto/torch; the
     cuda backend and the kernel entry points raise instead of falling back."""

@@ -6,7 +6,7 @@ corridor ``generate_ba_corridor(f=16, l=400)``.
 
 Tolerances: ``take_table`` is a copy, so exact. ``segment_sum_small``: rtol
 2e-5, atol 1e-4, the JAX package's own for its kernel (another order of the
-float32 sum). ``generate_ba_corridor``: every field exact except the noisy
+float32 sum); against its own documented order, bit for bit. ``generate_ba_corridor``: every field exact except the noisy
 poses, within 1e-6 (the two frameworks' float32 sin/cos may differ by an ulp).
 One ``sparse_ba_step`` with a fixed CG budget (``cg_tolerance=0``, 10
 iterations: both packages run the same matvecs): poses and landmarks within
@@ -99,6 +99,61 @@ def test_segment_sum_small_plain_matches_pallas(rng, n, r, t):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("n,r,t", [(5000, 6, 512), (4000, 36, 1500), (300, 9, 2048),
+                                   (20000, 12, 1025), (0, 6, 3)])
+def test_segment_sum_plain_close_to_index_add(rng, n, r, t):
+    """K9's fixed order against index_add_ at the JAX kernel's tolerance
+    (rtol 2e-5, atol 1e-4), past 1,024 segments too, with empty segments
+    (ids drawn from half the range) and ids outside [0, T) that add nothing."""
+    vals = rng.normal(size=(n, r)).astype(np.float32)
+    seg = rng.integers(-3, t // 2 + 3, n).astype(np.int32)
+    seg[::11] = t + 7
+    keep = (seg >= 0) & (seg < t)
+    ref = torch.zeros((t + 1, r)).index_add_(0, T(np.where(keep, seg, t)).long(), T(vals))[:t]
+    got = tsk.segment_sum_small(T(vals), T(seg), t)
+    assert got.shape == (t, r)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=2e-5, atol=1e-4)
+    assert not got[t // 2 + 3:].any()
+
+
+def test_segment_sum_plain_adds_in_the_documented_order(rng):
+    """The order K9 and its plain version share, written out in numpy float32:
+    a segment's rank-q row goes to lane q % 32, each lane adds serially from
+    0.0, then the shuffle-down tree. Bit for bit, with segments of 1 to ~300
+    rows; a plan made once gives the same bits as a call that makes its own."""
+    n, r, t = 6000, 5, 40
+    vals = (rng.normal(size=(n, r)) * 10.0 ** rng.integers(-4, 5, (n, r))).astype(np.float32)
+    seg = np.minimum(rng.geometric(0.08, n) - 1, t).astype(np.int32)
+    ref = np.zeros((t, r), np.float32)
+    for k in range(t):
+        rows = vals[seg == k]
+        lanes = np.zeros((32, r), np.float32)
+        for q, row in enumerate(rows):
+            lanes[q % 32] = lanes[q % 32] + row
+        for o in (16, 8, 4, 2, 1):
+            lanes[:o] = lanes[:o] + lanes[o:2 * o]
+        ref[k] = lanes[0]
+    plan = tsk.plan_segments(T(seg), t)
+    assert plan.order.dtype == torch.int32 and plan.offsets.shape == (t + 1,)
+    for got in (tsk.segment_sum_small(T(vals), T(seg), t),
+                tsk.segment_sum_small(T(vals), T(seg), t, plan=plan)):
+        np.testing.assert_array_equal(got.numpy().view(np.int32), ref.view(np.int32))
+
+
+def test_segment_sum_plain_past_1024_matches_jax_scatter(rng):
+    """Past 1,024 frames JAX's sparse_ba takes jax.ops.segment_sum
+    (parallel/sparse_ba.py:_segsum_frame_rows); K9's plain version agrees
+    with it at rtol 2e-5, atol 1e-4."""
+    import jax
+
+    n, r, f = 30000, 36, 1500
+    vals = rng.normal(size=(n, r)).astype(np.float32)
+    seg = rng.integers(0, f + 1, n).astype(np.int32)      # id f drops the row
+    ref = jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(seg), num_segments=f + 1)[:f]
+    got = tsk.segment_sum_small(T(vals), T(seg), f)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=1e-4)
+
+
 def test_new_wrappers_never_fall_back():
     with pytest.raises(ValueError, match="CUDA"):
         tgk.take_table(torch.zeros((2, 4)), torch.zeros(3, dtype=torch.int32), backend="cuda")
@@ -127,7 +182,8 @@ def test_frame_helpers_choose_by_device_alone(monkeypatch):
                         lambda table, idx, backend, transpose_out: calls.append(("K10", backend))
                         or table[:, :1])
     monkeypatch.setattr(tsba.segsum_kernel, "segment_sum_small",
-                        lambda v, seg, t, backend: calls.append(("K9", backend)) or v[:1])
+                        lambda v, seg, t, backend, plan=None: calls.append(("K9", backend))
+                        or v[:1])
     fi = torch.zeros(5, dtype=torch.int32)
     for f, r in ((40, 6), (2000, 6), (40, 100)):
         tsba._gather_frame_rows(torch.zeros((f, r)).as_subclass(OnCard), fi)
@@ -186,6 +242,38 @@ def test_sparse_ba_step_matches_jax(rng, scene, pack):
     np.testing.assert_allclose(float(st.chi), float(sj.chi), rtol=1e-4)
     assert int(st.num_obs) == int(sj.num_obs)
     np.testing.assert_allclose(float(st.cg_residual), float(sj.cg_residual), rtol=5e-2, atol=1e-6)
+
+
+def test_sparse_ba_step_matches_jax_past_1024_poses():
+    """One step at 1,100 poses (a corridor of 3,000 landmarks), where both
+    packages sum frame rows without their kernels' old 1,024-pose limit.
+    Landmarks, rotations and chi at test_sparse_ba_step_matches_jax's
+    tolerances (1e-4, 1e-4 relative). The translations move by up to ~3
+    units along this chain in 10 CG iterations, and there the float32 step
+    itself is uncertain: JAX's lies ~3e-3 from the same step in float64 (the
+    port's, run in float64), the two packages ~5e-4 from each other. So the
+    port's translations must lie no farther from JAX's than JAX's lie from
+    the float64 step."""
+    k, pj, _ = jsyn.generate_ba_corridor(f=1100, l=3000)
+    pt = _to_port(pj)
+    wj, dj = jsba.pack_problem(pj)
+    wt, dt = tsba.pack_problem(pt)
+    assert dj == dt is not None
+    rj, sj = jsba.sparse_ba_step(jnp.asarray(k), wj, cg_iterations=10, cg_tolerance=0.0,
+                                 lm_degree=dj)
+    rt, st = tsba.sparse_ba_step(T(k), wt, cg_iterations=10, cg_tolerance=0.0, lm_degree=dt)
+    w64 = wt._replace(poses=wt.poses.double(), landmarks=wt.landmarks.double(),
+                      uv=wt.uv.double())
+    r64, _ = tsba.sparse_ba_step(T(k).double(), w64, cg_iterations=10, cg_tolerance=0.0,
+                                 lm_degree=dt)
+    got, ref, exact = rt.poses.numpy(), np.asarray(rj.poses), r64.poses.numpy()
+    assert got.shape == (1100, 4, 4)
+    np.testing.assert_allclose(got[:, :3, :3], ref[:, :3, :3], atol=1e-4)
+    jax_error = np.abs(ref[:, :3, 3] - exact[:, :3, 3]).max()
+    assert np.abs(got[:, :3, 3] - ref[:, :3, 3]).max() <= jax_error
+    np.testing.assert_allclose(rt.landmarks.numpy(), np.asarray(rj.landmarks), atol=1e-4)
+    np.testing.assert_allclose(float(st.chi), float(sj.chi), rtol=1e-4)
+    assert int(st.num_obs) == int(sj.num_obs)
 
 
 def test_refine_sparse_reduces_chi_and_fixes_the_gauge(rng):

@@ -9,12 +9,31 @@
 //
 // One round = every thread's lane terms (30 for SE(3): 21 of H's upper
 // triangle, 6 of b, 3 stats; 12 for planar: 6 + 3 + 3), a block-wide sum,
-// and one damped, Jacobi-scaled solve plus pose update on thread 0. The
+// and one damped, Jacobi-scaled solve plus pose update on warp 0. The
 // block sum has one fixed order, which the plain PyTorch versions repeat
 // (ops/kernels/frame_kernel._block_sum): a shuffle-down tree inside each
-// warp (offsets 16, 8, 4, 2, 1), then the warps' partials added in warp
-// order. A thread that owns several points (K6 with N > blockDim.x) adds
-// them first, in ascending point order.
+// warp (lane l takes lane l + o at o = 16, 8, 4, 2, 1), then the warps'
+// partials added in warp order. A thread that owns several points (K6 with
+// N > blockDim.x) adds them first, in ascending point order.
+//
+// What bounds a round on the card is one SM's issue rate and the chain
+// through the solve. On an H100 80GB HBM3 (700 W), K4's round at 1,024 lanes
+// on one CTA spent ~5,500 of its ~11,000 cycles in 30 shuffle-down trees a
+// warp (150 shuffles, one warp-shuffle a clock an SM), ~2,300 in the lane
+// terms and ~2,400 in the solve on one thread (clock64() stamps,
+// chip_ab.py phases). So:
+//  - the warp sum is transposed (warp_sum_terms): the terms are padded to 32
+//    (16 planar) and halved across the warp, each lane keeping half of its
+//    terms and adding its xor partner's copy of that half, 31 shuffles a
+//    warp; the pairs that meet are the tree's pairs, and float addition
+//    commutes bitwise, so lane q ends with the tree's sum of term q, bit for
+//    bit. Lane q stores term q, and warp 0's lane q folds the warps' partials
+//    of term q in warp order, the loads issued ahead of the adds;
+//  - warp 0 solves, its lanes sharing the independent pieces (gn_update).
+//    Every warp solving for itself would save one barrier but spend 32
+//    warps' issue slots on the solve's few hundred instructions;
+//  - a wide solve may split its lanes over a thread block cluster (gn_solve),
+//    so that the lane terms and warp sums of 1,024 lanes run on four SMs.
 //
 // The expressions keep the TPU kernel's operation order term by term and the
 // library is built with --fmad=false, so kernel and plain version round
@@ -22,11 +41,16 @@
 // that touches shared memory is here.
 #pragma once
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 #define GN_NRED_SE3 30
 #define GN_NRED_SE2 12
-#define GN_MAX_WARPS 32
+#define GN_MAX_WARPS 32  // of a solve, over all the CTAs of a cluster
+#define GN_MAX_CLUSTER 4
 
 struct GNControl {
   int it;
@@ -43,10 +67,12 @@ struct GNParams {
 };
 
 // The loop's shared-memory state. pose is the working [R|t] (3x4 row-major),
-// published by thread 0 after every round.
+// published by warp 0 after every round. red holds every warp's partials, by
+// round parity: in a cluster, a CTA may write round r + 1's while another
+// still folds round r's.
 struct GNShared {
   float pose[12];
-  float red[GN_MAX_WARPS * GN_NRED_SE3];
+  float red[2 * GN_MAX_WARPS * GN_NRED_SE3];
   float sums[GN_NRED_SE3];
   GNControl ctl;
 };
@@ -56,6 +82,54 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   return v;
 }
+
+// One halving step at xor offset O and the steps below it: a lane keeps the
+// half of its 2 O terms that its bit O selects and adds its partner's copy of
+// that half. O is a template constant, so every index is too and the terms
+// stay in registers.
+template <int O, int NPAD>
+__device__ __forceinline__ void halve_terms(float (&t)[NPAD], int lane) {
+  const bool upper = (lane & O) != 0;
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    const float send = upper ? t[i] : t[O + i];
+    const float keep = upper ? t[O + i] : t[i];
+    t[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+  if constexpr (O > 1) halve_terms<O / 2, NPAD>(t, lane);
+}
+
+// The warp sum of NPAD terms a lane (32, or 16 for the planar group),
+// transposed: on return lane q holds warp_sum of term q (q < NPAD; lanes
+// 16..31 repeat lanes 0..15 when NPAD = 16), bit for bit. t is clobbered.
+template <int NPAD>
+__device__ __forceinline__ float warp_sum_terms(float (&t)[NPAD]) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (NPAD == 16) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) t[i] = t[i] + __shfl_xor_sync(0xffffffffu, t[i], 16);
+  }
+  halve_terms<NPAD / 2, NPAD>(t, lane);
+  return t[0];
+}
+
+// Cycle stamps of a round's phases, compiled only into the diagnostic builds
+// of chip_ab.py (-DVO_GN_PHASES; -DVO_GN_TREE_SUMS swaps in the 30 shuffle
+// trees the warp sum had before); thread 0 adds each phase's clock64() cycles
+// to vo_gn_phase_cycles. Slots: 0 lane terms, 1 warp sum and stores, 2 wait
+// for the other warps, 3 cross-warp fold, 4 solve, 5 second barrier, 6
+// rounds, 7 frames (track_frames.cu: 8 join, 9 triangulation and stores).
+#ifdef VO_GN_PHASES
+__device__ unsigned long long vo_gn_phase_cycles[16];
+#define GN_STAMPS(...) long long __VA_ARGS__
+#define GN_STAMP(var) var = clock64()
+#define GN_PHASE(slot, a, b) \
+  if (threadIdx.x == 0) atomicAdd(&vo_gn_phase_cycles[slot], static_cast<unsigned long long>((b) - (a)))
+#else
+#define GN_STAMPS(...)
+#define GN_STAMP(var)
+#define GN_PHASE(slot, a, b)
+#endif
 
 __device__ inline void inv3(const float* m, float* out) {
   const float a = m[0], b = m[1], c = m[2], d = m[3], e = m[4], f = m[5], g = m[6], h = m[7],
@@ -176,10 +250,28 @@ __device__ __forceinline__ void gn_point_terms(const float* P, const GNParams& g
   part[q++] = inl;
 }
 
+// The solves below run on all 32 lanes of warp 0 alike. The pieces that do
+// not depend on each other are spread over lanes (a Jacobi scale a lane, a
+// sine or cosine a lane) and gathered by shuffles; each keeps its expression,
+// so the result is the one lane 0 alone would compute. Lane 0 writes the
+// pose after the warp has read the old one.
+__device__ __forceinline__ void gn_write_pose(float* pose, const float* r_new, const float* t_new,
+                                              int lane) {
+  __syncwarp();
+  if (lane == 0) {
+    for (int r = 0; r < 3; ++r) {
+      pose[4 * r + 0] = r_new[3 * r + 0];
+      pose[4 * r + 1] = r_new[3 * r + 1];
+      pose[4 * r + 2] = r_new[3 * r + 2];
+      pose[4 * r + 3] = t_new[r];
+    }
+  }
+}
+
 // One damped GN solve + Euler-chart update (picp_kernel.py:362-424), on the
 // 30 sums. Updates pose (3x4 row-major) and ctl in place.
 __device__ inline void gn_update(const float* sums, const GNParams& g, float* pose,
-                                 GNControl* ctl) {
+                                 GNControl* ctl, int lane) {
   float hm[6][6];
   int q = 0;
   for (int i = 0; i < 6; ++i)
@@ -187,11 +279,13 @@ __device__ inline void gn_update(const float* sums, const GNParams& g, float* po
   const float* bv = sums + 21;
   const float new_chi_in = sums[27], new_chi_out = sums[28], new_n_in = sums[29];
 
+  // Lane i < 6 takes H[i][i], the 0th, 6th, 11th, 15th, 18th and 20th sum.
+  const int i6 = lane % 6;
+  const float m = sums[i6 * (13 - i6) / 2] + g.damping;
+  const float my_sc = 1.0f / sqrtf(fmaxf(m, 1e-30f));
   float sc[6];
-  for (int i = 0; i < 6; ++i) {
-    const float m = hm[i][i] + g.damping;
-    sc[i] = 1.0f / sqrtf(fmaxf(m, 1e-30f));
-  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) sc[i] = __shfl_sync(0xffffffffu, my_sc, i);
   auto se = [&](int i, int j) {
     const int lo = i < j ? i : j, hi = i < j ? j : i;
     return hm[lo][hi] * sc[i] * sc[j];
@@ -224,9 +318,18 @@ __device__ inline void gn_update(const float* sums, const GNParams& g, float* po
   float dx2 = dx[0] * dx[0];
   for (int i = 1; i < 6; ++i) dx2 = dx2 + dx[i] * dx[i];
 
-  const float sa = sinf(dx[3]), ca = cosf(dx[3]);
-  const float sb = sinf(dx[4]), cb = cosf(dx[4]);
-  const float ss = sinf(dx[5]), cc = cosf(dx[5]);
+  // Lanes 0-2: sin of dx[3..5]; the others: cos of dx[3 + lane % 3].
+  const int k3 = lane % 3;
+  const float angle = k3 == 0 ? dx[3] : (k3 == 1 ? dx[4] : dx[5]);
+  float trig;
+  if (lane < 3) {
+    trig = sinf(angle);
+  } else {
+    trig = cosf(angle);
+  }
+  const float sa = __shfl_sync(0xffffffffu, trig, 0), ca = __shfl_sync(0xffffffffu, trig, 3);
+  const float sb = __shfl_sync(0xffffffffu, trig, 1), cb = __shfl_sync(0xffffffffu, trig, 4);
+  const float ss = __shfl_sync(0xffffffffu, trig, 2), cc = __shfl_sync(0xffffffffu, trig, 5);
   const float rd[9] = {cb * cc,
                        -cb * ss,
                        sb,
@@ -242,12 +345,8 @@ __device__ inline void gn_update(const float* sums, const GNParams& g, float* po
   float r_new[9], t_rot[3];
   mat3mul(rd, r_old, r_new);
   mat3vec(rd, t_old, t_rot);
-  for (int r = 0; r < 3; ++r) {
-    pose[4 * r + 0] = r_new[3 * r + 0];
-    pose[4 * r + 1] = r_new[3 * r + 1];
-    pose[4 * r + 2] = r_new[3 * r + 2];
-    pose[4 * r + 3] = t_rot[r] + dx[r];
-  }
+  const float t_new[3] = {t_rot[0] + dx[0], t_rot[1] + dx[1], t_rot[2] + dx[2]};
+  gn_write_pose(pose, r_new, t_new, lane);
   ctl->it += 1;
   ctl->active = (enough && dx2 > g.tol) ? 1.0f : 0.0f;
   ctl->chi_in = new_chi_in;
@@ -259,14 +358,17 @@ __device__ inline void gn_update(const float* sums, const GNParams& g, float* po
 // 3x3 solve through the adjugate inverse, then X <- c^-1 T(d) c X with
 // incr_R = c_inv_R (T(dtheta) c_R) and incr_t = c_inv_R (T c_t + d) + c_inv_t.
 __device__ inline void gn_update_se2(const float* sums, const GNParams& g, float* pose,
-                                     GNControl* ctl) {
+                                     GNControl* ctl, int lane) {
   const float h00 = sums[0], h01 = sums[1], h02 = sums[2], h11 = sums[3], h12 = sums[4],
               h22 = sums[5];
   const float* bv = sums + 6;
   const float new_chi_in = sums[9], new_chi_out = sums[10], new_n_in = sums[11];
-  const float sc0 = 1.0f / sqrtf(fmaxf(h00 + g.damping, 1e-30f));
-  const float sc1 = 1.0f / sqrtf(fmaxf(h11 + g.damping, 1e-30f));
-  const float sc2 = 1.0f / sqrtf(fmaxf(h22 + g.damping, 1e-30f));
+  const int k3 = lane % 3;
+  const float hd = k3 == 0 ? h00 : (k3 == 1 ? h11 : h22);
+  const float my_sc = 1.0f / sqrtf(fmaxf(hd + g.damping, 1e-30f));
+  const float sc0 = __shfl_sync(0xffffffffu, my_sc, 0);
+  const float sc1 = __shfl_sync(0xffffffffu, my_sc, 1);
+  const float sc2 = __shfl_sync(0xffffffffu, my_sc, 2);
   const float s01 = h01 * sc0 * sc1, s02 = h02 * sc0 * sc2, s12 = h12 * sc1 * sc2;
   const float A[9] = {1.0f, s01, s02, s01, 1.0f, s12, s02, s12, 1.0f};
   float Ai[9], y[3];
@@ -280,7 +382,13 @@ __device__ inline void gn_update_se2(const float* sums, const GNParams& g, float
   dx2 = dx2 + dx[1] * dx[1];
   dx2 = dx2 + dx[2] * dx[2];
 
-  const float sth = sinf(dx[2]), cth = cosf(dx[2]);
+  float trig;
+  if (lane == 0) {
+    trig = sinf(dx[2]);
+  } else {
+    trig = cosf(dx[2]);
+  }
+  const float sth = __shfl_sync(0xffffffffu, trig, 0), cth = __shfl_sync(0xffffffffu, trig, 1);
   const float tr[9] = {cth, -sth, 0.0f * cth, sth, cth, 0.0f * cth,
                        0.0f * cth, 0.0f * cth, 1.0f + 0.0f * cth};
   const float* c = g.mount;
@@ -305,12 +413,8 @@ __device__ inline void gn_update_se2(const float* sums, const GNParams& g, float
   float r_new[9], t_rot[3];
   mat3mul(incr_r, r_old, r_new);
   mat3vec(incr_r, t_old, t_rot);
-  for (int r = 0; r < 3; ++r) {
-    pose[4 * r + 0] = r_new[3 * r + 0];
-    pose[4 * r + 1] = r_new[3 * r + 1];
-    pose[4 * r + 2] = r_new[3 * r + 2];
-    pose[4 * r + 3] = t_rot[r] + incr_t[r];
-  }
+  const float t_new[3] = {t_rot[0] + incr_t[0], t_rot[1] + incr_t[1], t_rot[2] + incr_t[2]};
+  gn_write_pose(pose, r_new, t_new, lane);
   ctl->it += 1;
   ctl->active = (enough && dx2 > g.tol) ? 1.0f : 0.0f;
   ctl->chi_in = new_chi_in;
@@ -332,41 +436,88 @@ __device__ __forceinline__ void gn_init(GNShared* sh, const float* pose0) {
 // it after a barrier that follows gn_init. lane_terms(P, part) fills this
 // thread's NRED terms under pose P (zeros for a thread without a point). On
 // return sh->pose and sh->ctl hold the result, visible to every thread. A
-// round costs two barriers.
+// round costs two barriers: one before the fold, one after the solve.
+//
+// cluster > 1: the solve's lanes are split over the CTAs of a thread block
+// cluster (rank r holds warps r * W .. r * W + W - 1, W = blockDim.x / 32).
+// Each warp's partials go to every CTA's red (distributed shared memory),
+// the first barrier is the cluster's, and every CTA folds all the warps in
+// warp order and solves, so each ends the round with the same pose bits.
 template <bool PLANAR, typename LaneTerms>
 __device__ __forceinline__ void gn_solve(GNShared* sh, const GNParams& g, int num_iterations,
-                                         int min_iterations, LaneTerms lane_terms) {
+                                         int min_iterations, LaneTerms lane_terms,
+                                         int cluster = 1) {
   constexpr int NRED = PLANAR ? GN_NRED_SE2 : GN_NRED_SE3;
+  constexpr int NPAD = PLANAR ? 16 : 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int wpc = blockDim.x >> 5;
+  const int nwarps = wpc * cluster;
+  const int gwarp = (cluster > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0) * wpc + warp;
   while (true) {
     const int it = sh->ctl.it;
     if (!(it < num_iterations && (sh->ctl.active > 0.5f || it < min_iterations))) break;
-    float part[NRED];
+    GN_STAMPS(t0, t1, t2, t3, t4, t5, t6);
+    GN_STAMP(t0);
+    float part[NPAD];
     lane_terms(sh->pose, part);
+#pragma unroll
+    for (int q = NRED; q < NPAD; ++q) part[q] = 0.0f;
+    GN_STAMP(t1);
+    float* red = sh->red + (it & 1) * (GN_MAX_WARPS * NRED);
+#ifdef VO_GN_TREE_SUMS  // diagnostic builds only: one shuffle-down tree a term, as before
 #pragma unroll
     for (int q = 0; q < NRED; ++q) {
       const float v = warp_sum(part[q]);
-      if (lane == 0) sh->red[warp * NRED + q] = v;
+      if (lane == 0) red[gwarp * NRED + q] = v;  // one CTA only
     }
-    __syncthreads();
+#else
+    const float v = warp_sum_terms<NPAD>(part);
+    if (lane < NRED) {
+      if (cluster > 1) {
+        for (int r = 0; r < cluster; ++r)
+          cg::this_cluster().map_shared_rank(red, r)[gwarp * NRED + lane] = v;
+      } else {
+        red[gwarp * NRED + lane] = v;
+      }
+    }
+#endif
+    GN_STAMP(t2);
+    if (cluster > 1) {
+      cg::this_cluster().sync();
+    } else {
+      __syncthreads();
+    }
+    GN_STAMP(t3);
     if (warp == 0) {
       if (lane < NRED) {
-        float acc = sh->red[lane];
-        for (int w = 1; w < nwarps; ++w) acc += sh->red[w * NRED + lane];
+        float r[GN_MAX_WARPS];
+#pragma unroll
+        for (int w = 0; w < GN_MAX_WARPS; ++w) r[w] = w < nwarps ? red[w * NRED + lane] : 0.0f;
+        float acc = r[0];
+#pragma unroll
+        for (int w = 1; w < GN_MAX_WARPS; ++w)
+          if (w < nwarps) acc = acc + r[w];
         sh->sums[lane] = acc;
       }
       __syncwarp();
-      if (lane == 0) {
-        GNControl ctl = sh->ctl;
-        if (PLANAR) {
-          gn_update_se2(sh->sums, g, sh->pose, &ctl);
-        } else {
-          gn_update(sh->sums, g, sh->pose, &ctl);
-        }
-        sh->ctl = ctl;
+      GN_STAMP(t4);
+      GNControl ctl = sh->ctl;
+      if (PLANAR) {
+        gn_update_se2(sh->sums, g, sh->pose, &ctl, lane);
+      } else {
+        gn_update(sh->sums, g, sh->pose, &ctl, lane);
       }
+      if (lane == 0) sh->ctl = ctl;
+      GN_STAMP(t5);
     }
     __syncthreads();
+    GN_STAMP(t6);
+    GN_PHASE(0, t0, t1);
+    GN_PHASE(1, t1, t2);
+    GN_PHASE(2, t2, t3);
+    GN_PHASE(3, t3, t4);
+    GN_PHASE(4, t4, t5);
+    GN_PHASE(5, t5, t6);
+    GN_PHASE(6, 0, 1);
   }
 }

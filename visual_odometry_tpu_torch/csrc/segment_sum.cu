@@ -1,77 +1,117 @@
 // K9: segment sum into a small segment space,
-// out[t, r] = sum over n of values[n, r] * (seg[n] == t).
+// out[t, r] = sum over n of values[n, r] * (seg[n] == t), in one fixed order.
 //
 // Replaces visual_odometry_tpu/ops/pallas/segsum_kernel.py:segment_sum_small
 // (body _kernel), which builds a one-hot (block, T) matrix per block and
 // contracts it on the MXU because XLA's scatter-add ran on the scalar core.
-// The one-hot product is not kept: values (N, R) float32 row-major, seg (N,)
-// int32, T <= 1024 segments (the cameras of a bundle adjustment); rows whose
-// id lies outside [0, T) add nothing, as in the TPU kernel. out (T, R) must
-// come zeroed.
+// The one-hot product is not kept, nor a table per CTA, nor any atomic.
 //
-// Bound on this card: bytes, 4 N (R + 1) read once and 4 T R written.
-// Design: each CTA takes a contiguous block of rows and adds them into a
-// (T, R_tile) table in shared memory with shared-memory atomics, walking the
-// block's elements in memory order so that the loads coalesce; then it adds
-// the table's non-zero entries into the output with global atomics. The
-// table's width R_tile is the most columns that fit the 227 KB a CTA may ask
-// for (all of them for R = 36 at T <= 1024); wider rows are tiled over
-// blockIdx.y. The order in which atomics land is not fixed, so the sums
-// differ in their last bits from run to run; the plain version (index_add_
-// into T + 1 rows, the last dropped) is held to rtol 2e-5, atol 1e-4.
+// Inputs: values (N, R) float32 row-major, any R; a plan of the segment ids
+// (ops/kernels/segsum_kernel.plan_segments): order (N,) int32, the rows whose
+// id lies in [0, T) stably sorted by id, and offsets (T + 1,) int32, segment t
+// being order[offsets[t] .. offsets[t + 1]). Rows whose id lies outside
+// [0, T) are not in any segment and add nothing, as in the TPU kernel. The
+// ids of a bundle adjustment are fixed for the whole run, so the plan is made
+// once and every launch reuses it. out (T, R), every entry written.
+//
+// The order of the sum, which the plain version repeats: one warp owns one
+// segment and a group of up to 4 columns. Lane l adds the rows at ranks l,
+// l + 32, l + 64, ... of its segment, serially from 0.0f in ascending rank;
+// then the 32 lane partials meet in a shuffle-down tree (offsets 16, 8, 4, 2,
+// 1) and lane 0 writes the sum. Two launches on the same input give the same
+// bits, and the plain version gives them too.
+//
+// Bound on this card: bytes, 4 N (R + 1) read once (values and order) and
+// 4 T R written. Design: T x ceil(R / 4) warps, the column groups of a
+// segment in neighbouring warps of a CTA so that they share the rows' cache
+// lines; each lane loads four ranks ahead before it adds them in order, and
+// reads a 16-byte group as one float4 where R is a multiple of 4. A segment
+// is one warp's serial work, so a segment holding most of N runs at one
+// warp's pace; the frames of a bundle adjustment hold similar counts.
 #include "common.cuh"
 
-#define SEGSUM_MAX_SMEM (227 * 1024)
+namespace {
 
-__global__ void __launch_bounds__(1024)
-    segment_sum_kernel(const float* __restrict__ values, const int* __restrict__ seg,
-                       float* __restrict__ out, long long n, int r, int t, int r_tile,
-                       long long rows_per_cta) {
-  extern __shared__ float tab[];  // (t, cw)
-  const int c0 = blockIdx.y * r_tile;
-  const int cw = (r - c0) < r_tile ? (r - c0) : r_tile;
-  const int cells = t * cw;
-  for (int e = threadIdx.x; e < cells; e += blockDim.x) tab[e] = 0.0f;
-  __syncthreads();
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kCols = 4;  // columns a warp owns
 
-  const long long row0 = blockIdx.x * rows_per_cta;
-  const long long row1 = (row0 + rows_per_cta) < n ? (row0 + rows_per_cta) : n;
-  const int total = static_cast<int>(row1 - row0) * cw;  // the launcher keeps it below 2^31
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const long long row = row0 + e / cw;
-    const int c = e % cw;
-    const int sg = seg[row];
-    if (sg >= 0 && sg < t) atomicAdd(&tab[sg * cw + c], values[row * r + c0 + c]);
-  }
-  __syncthreads();
-
-  for (int e = threadIdx.x; e < cells; e += blockDim.x) {
-    const float v = tab[e];
-    if (v != 0.0f) atomicAdd(&out[(e / cw) * r + c0 + (e % cw)], v);
+template <bool VEC>
+__device__ __forceinline__ void load_group(const float* __restrict__ values, long long row, int r,
+                                           int c0, int cw, float* v) {
+  const float* p = values + row * r + c0;
+  if (VEC) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) v[c] = c < cw ? __ldg(p + c) : 0.0f;
   }
 }
 
-VO_EXPORT int vo_segment_sum(const float* values, const int* seg, float* out, long long n, int r,
-                             int t, void* stream) {
-  if (n <= 0 || r <= 0) return 0;
-  if (t < 1 || t > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  int r_tile = SEGSUM_MAX_SMEM / (static_cast<int>(sizeof(float)) * t);
-  if (r_tile > r) r_tile = r;
-  const int tiles = (r + r_tile - 1) / r_tile;
-  // One CTA of 1024 threads per SM and column tile, at least 1024 rows each.
-  const int threads = 1024;
-  long long ctas = 132;
-  if (ctas * threads > n) ctas = (n + threads - 1) / threads;
-  const long long rows_per_cta = (n + ctas - 1) / ctas;
-  if (rows_per_cta * r_tile >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  ctas = (n + rows_per_cta - 1) / rows_per_cta;
-  const size_t smem = static_cast<size_t>(t) * r_tile * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(segment_sum_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  segment_sum_kernel<<<dim3(static_cast<unsigned>(ctas), tiles), threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(values, seg, out, n, r, t, r_tile,
-                                                            rows_per_cta);
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    segment_sum_kernel(const float* __restrict__ values, const int* __restrict__ order,
+                       const int* __restrict__ offsets, float* __restrict__ out, int r, int t,
+                       int groups) {
+  const int lane = threadIdx.x & 31;
+  const long long gw = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (gw >= static_cast<long long>(t) * groups) return;
+  const int seg = static_cast<int>(gw / groups);
+  const int c0 = static_cast<int>(gw % groups) * kCols;
+  const int cw = (r - c0) < kCols ? (r - c0) : kCols;
+  const int begin = __ldg(offsets + seg), end = __ldg(offsets + seg + 1);
+
+  float acc[kCols] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int p = begin + lane;
+  // Four ranks of this lane at a time: loads first, then the adds in rank order.
+  for (; p + 96 < end; p += 128) {
+    float v[4][kCols];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) load_group<VEC>(values, __ldg(order + p + 32 * u), r, c0, cw, v[u]);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[c] = acc[c] + v[u][c];
+  }
+  for (; p < end; p += 32) {
+    float v[kCols];
+    load_group<VEC>(values, __ldg(order + p), r, c0, cw, v);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[c] = acc[c] + v[c];
+  }
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc[c] = acc[c] + __shfl_down_sync(0xffffffffu, acc[c], o);
+  }
+  if (lane == 0) {
+    float* dst = out + static_cast<long long>(seg) * r + c0;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      if (c < cw) dst[c] = acc[c];
+  }
+}
+
+}  // namespace
+
+VO_EXPORT int vo_segment_sum(const float* values, const int* order, const int* offsets, float* out,
+                             int r, int t, void* stream) {
+  if (r <= 0 || t <= 0) return 0;
+  const int groups = (r + kCols - 1) / kCols;
+  const long long blocks = (static_cast<long long>(t) * groups + kWarps - 1) / kWarps;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = (r % 4 == 0) && (reinterpret_cast<uintptr_t>(values) % 16 == 0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    segment_sum_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+        values, order, offsets, out, r, t, groups);
+  } else {
+    segment_sum_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+        values, order, offsets, out, r, t, groups);
+  }
   return vo_launch_status();
 }

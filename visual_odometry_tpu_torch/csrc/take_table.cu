@@ -5,15 +5,15 @@
 // gathers on the scalar core; it pads the table to 8 rows and whole 128-lane
 // tiles, takes the indices replicated over 8 sublanes and selects among
 // single-vreg gathers. None of that is part of the function and none is kept:
-// table (R, T) float32 with R <= 12 and T <= 1024 (the 12 pose rows of a
-// bundle adjustment's F <= 1024 cameras, or an (F, 6) vector), read through
+// table (R, T) float32 with R <= 12 and any T (the 12 pose rows of a
+// bundle adjustment's F cameras, or an (F, 6) vector), read through
 // its two strides so that the transpose of an (F, R) tensor needs no copy;
 // idx (N,) int32, clipped to [0, T - 1] (the TPU kernel clips to the end of
 // its lane-padded table, the same thing at a whole-tile T); out (R, N), or
 // its transpose (N, R) when the consumer reads records (TRANSPOSED).
 //
-// Bound on this card: bytes, 4 N of indices in and 4 R N out; the table (at
-// most 48 KB) is read in place through the read-only cache. Design: a warp
+// Bound on this card: bytes, 4 N of indices in and 4 R N out; the table
+// (48 B a column) is read in place through the read-only cache. Design: a warp
 // owns 32 observations; lane l reads idx[n0 + l] once. (R, N): lane l writes
 // its R values, each store coalesced along n. (N, R): the warp's 32 records
 // are 32 R contiguous floats; element e = l + 32 k takes its index from lane
@@ -63,7 +63,7 @@ __global__ void take_table_kernel(const float* __restrict__ table, long long st_
 VO_EXPORT int vo_take_table(const float* table, long long st_r, long long st_t, const int* idx,
                             float* out, long long n, int r, int t, int transposed, void* stream) {
   if (n <= 0 || r <= 0) return 0;
-  if (r > 12 || t < 1 || t > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (r > 12 || t < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -168,7 +168,7 @@ _SIGNATURES = {
     "vo_best_match": [_P] * 7 + [_I] * 5 + [_P],
     "vo_track_frames_batched": [_P] * 13 + [_I] * 6 + [_P],
     "vo_track_frames_batched_planar": [_P] * 13 + [_I] * 6 + [_P],
-    "vo_segment_sum": [_P, _P, _P, _L, _I, _I, _P],
+    "vo_segment_sum": [_P, _P, _P, _P, _I, _I, _P],
     "vo_take_table": [_P, _L, _L, _P, _P, _L, _I, _I, _I, _P],
     "vo_picp_linearize": [_P] * 5 + [_I, _P],
 }

@@ -19,9 +19,9 @@ grow to ~1e-3 over hundreds of frames through the monocular chain.
 
 K8 (:func:`track_frames_batched`) replaces ``track_frames_fused_serving`` with
 ``gn_loop_batched``/``gn_loop_se2_batched`` inside: N independent sequences,
-one shared camera and one set of knobs, one CTA per sequence of the same
-``__global__`` as K4/K5, so a sequence's result equals its single launch bit
-for bit. Not carried over from the TPU design: ``inner_batch`` and the sublane
+one shared camera and one set of knobs, one CTA (a cluster of CTAs at wide
+S) per sequence of the same ``__global__`` as K4/K5, so a sequence's result
+equals its single launch bit for bit. Not carried over from the TPU design: ``inner_batch`` and the sublane
 lock-step with frozen converged sequences (a CTA simply leaves its loop), the
 ``(G, F, 5, B, S)`` transposes, the frame blocking and its zero-validity
 padding frames, and ``interpret``. Its plain version is a loop of
@@ -490,7 +490,8 @@ def track_frames_plain(params, init_tri, init_tri_ok, cand: JoinCandidates, prev
 def track_frames_cuda(params, init_tri, init_tri_ok, cand: JoinCandidates, prev_al, cur_al,
                       corr_valid, num_iterations: int, min_iterations: int = 1,
                       planar: bool = False):
-    """Launch K4, or K5 with ``planar``: one CTA, one thread per lane (S <= 1024)."""
+    """Launch K4, or K5 with ``planar``: one CTA, or a cluster of CTAs at wide
+    S, one thread per lane (S <= 1024)."""
     f, depth, s = cand.idx.shape
     dev = _lib.cuda_device(prev_al)
     if s > 1024:
@@ -564,7 +565,7 @@ def track_frames_batched_plain(params, pose0, init_tri, init_tri_ok, cand: JoinC
 def track_frames_batched_cuda(params, pose0, init_tri, init_tri_ok, cand: JoinCandidates,
                               prev_al, cur_al, corr_valid, num_iterations: int,
                               min_iterations: int = 1, planar: bool = False):
-    """Launch K8: one CTA per sequence, one thread per lane (S <= 1024)."""
+    """Launch K8: one CTA (or cluster) per sequence, one thread per lane (S <= 1024)."""
     n, f, depth, s = cand.idx.shape
     dev = _lib.cuda_device(prev_al)
     if s > 1024:

@@ -20,8 +20,9 @@ kernel clips to the end of its lane-padded table, which is the same at a
 whole-tile T and reads its zero padding at a ragged one. Not carried over:
 the padding of the table to 8 rows and whole 128-lane tiles and the indices
 replicated over 8 sublanes (Mosaic layout needs), and with them the limit of
-8 rows: R goes up to 12, so the 12 pose rows of a bundle adjustment take one
-launch where the JAX caller splits them into 8 + 4.
+8 rows and of 1,024 columns: R goes up to 12, so the 12 pose rows of a bundle
+adjustment take one launch where the JAX caller splits them into 8 + 4, and
+T is any number of poses.
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor, backend: str = "auto") -> 
 # K10: shared-table gather
 # --------------------------------------------------------------------------
 
-TABLE_MAX_ROWS, TABLE_MAX_COLS = 12, 1024
+TABLE_MAX_ROWS = 12
 
 
 def take_table_plain(table: torch.Tensor, idx: torch.Tensor,
@@ -81,14 +82,14 @@ def take_table_plain(table: torch.Tensor, idx: torch.Tensor,
 
 def take_table_cuda(table: torch.Tensor, idx: torch.Tensor,
                     transpose_out: bool = False) -> torch.Tensor:
-    """Launch K10. table (R, T) float32 with any strides, R <= 12, T <= 1024;
+    """Launch K10. table (R, T) float32 with any strides, R <= 12, T >= 1;
     idx (N,) int32, contiguous. Returns (R, N), or (N, R) with
     ``transpose_out``."""
     dev = _lib.cuda_device(table)
     r, t = table.shape
-    if r > TABLE_MAX_ROWS or not 1 <= t <= TABLE_MAX_COLS:
-        raise ValueError(f"take_table kernel takes a table of at most {TABLE_MAX_ROWS} x "
-                         f"{TABLE_MAX_COLS}, got {r} x {t}")
+    if r > TABLE_MAX_ROWS or t < 1:
+        raise ValueError(f"take_table kernel takes a table of at most {TABLE_MAX_ROWS} rows "
+                         f"and at least one column, got {r} x {t}")
     if table.dtype is not torch.float32:
         raise ValueError(f"table has dtype {table.dtype}, expected torch.float32")
     n = idx.shape[0]

@@ -2,8 +2,9 @@
 K7: streaming top-1 of a query set against a map-scale database.
 
 Replaces ``visual_odometry_tpu/ops/pallas/matcher_kernel.py``:
-``match_pairs_pallas`` with ``csrc/match_pairs.cu`` (one CTA per pair, FP32
-pipes, descriptors in shared memory) and ``best_match_pallas`` with
+``match_pairs_pallas`` with ``csrc/match_pairs.cu`` (a CTA per direction
+and 128-row tile of a pair, four rows a lane in registers against the other
+frame staged in shared memory, FP32 pipes) and ``best_match_pallas`` with
 ``csrc/best_match.cu`` (query tiles x database splits, then a fold of the
 splits); both are bound by the FP32 instruction rate, see the sources' headers.
 

@@ -35,11 +35,14 @@ observation (one K10 launch of 12 rows where the JAX code needs two of
 matvec one K10 and one K9. The choice is by the tensors' device alone. K10
 reads the (F, R) table in place through its strides and writes the layout
 its consumer reads ((12, N) for the pose rows, (N, 6) in the CG), so no
-transposing copy sits beside it. K9 holds its frame table in shared memory;
-both take F <= 1024: a CUDA problem with more poses raises their ValueError
-(the JAX package gives way to its plain scatter there; the port never runs a
-plain version on the card).
-For CPU tensors, plain indexing and ``index_add_``.
+transposing copy sits beside it. K9 sums each frame's observations in one
+fixed order over a plan of the frame ids (``segsum_kernel.plan_segments``),
+made once per step, or once per run by :func:`refine_sparse`, since the ids
+do not change: its sums are the same bits in every launch and on the CPU.
+Both take any number of poses, as the JAX package does (it gives way to a
+plain scatter past 1,024 poses; the port never runs a plain version on the
+card). For CPU tensors, plain indexing and K9's plain version; the
+landmark-side sums of the unpacked layout are ``index_add_`` on both devices.
 
 ``pack_problem`` repacks the observations into a fixed-degree landmark-major
 layout, in which the landmark-side sums and gathers become a reshape-reduce
@@ -95,12 +98,21 @@ def _gather_frame_rows(v: torch.Tensor, frame_idx: torch.Tensor,
     return out.T if by_row else out
 
 
-def _segsum_frame_rows(vals: torch.Tensor, frame_idx: torch.Tensor, f: int) -> torch.Tensor:
+def _segsum_frame_rows(vals: torch.Tensor, frame_idx: torch.Tensor, f: int,
+                       plan: Optional[segsum_kernel.SegmentPlan] = None) -> torch.Tensor:
     """(N, R) rows summed into (F, R) by frame id (id >= f drops the row): K9
-    on the card."""
+    on the card. ``plan`` is ``segsum_kernel.plan_segments(frame_idx, f)``."""
     if vals.is_cuda:
-        return segsum_kernel.segment_sum_small(vals, frame_idx, f, backend="cuda")
-    return segsum_kernel.segment_sum_small_plain(vals, frame_idx, f)
+        return segsum_kernel.segment_sum_small(vals, frame_idx, f, backend="cuda", plan=plan)
+    return segsum_kernel.segment_sum_small_plain(vals, frame_idx, f, plan)
+
+
+def plan_frames(problem: SparseBAProblem) -> Tuple[torch.Tensor, segsum_kernel.SegmentPlan]:
+    """The frame ids the frame-space sums take (masked observations set to F,
+    which drops them) and K9's plan of them: fixed while the observations are."""
+    f = problem.poses.shape[0]
+    seg = torch.where(problem.obs_mask, problem.frame_idx, f).to(torch.int32)
+    return seg, segsum_kernel.plan_segments(seg, f)
 
 
 def pack_problem(problem: SparseBAProblem):
@@ -148,8 +160,8 @@ def _segsum_lm(rows: torch.Tensor, lm_idx: torch.Tensor, mask: torch.Tensor, l: 
     site, so where they land does not matter)."""
     if lm_degree is not None:
         return rows.reshape(l, lm_degree, rows.shape[-1]).sum(dim=1)
-    safe = torch.where(mask, lm_idx, l)
-    return segsum_kernel.segment_sum_small_plain(rows, safe, l)
+    safe = torch.where(mask, lm_idx, l).long()
+    return rows.new_zeros((l + 1, rows.shape[1])).index_add_(0, safe, rows)[:l]
 
 
 def _gather_lm(values: torch.Tensor, lm_idx: torch.Tensor, n: int, lm_degree) -> torch.Tensor:
@@ -284,17 +296,21 @@ class _ReducedSystem(NamedTuple):
     w_rows_y: torch.Tensor    # (N, 6)
     l_rows_x: torch.Tensor    # (N, 3) sqrt-weighted j_lm rows
     l_rows_y: torch.Tensor    # (N, 3)
-    frame_idx: torch.Tensor   # (N,) sanitized
+    frame_idx: torch.Tensor   # (N,) sanitized (masked -> 0), for the gathers
     lm_idx: torch.Tensor      # (N,) sanitized
     precond: torch.Tensor     # (F, 6, 6) inverse of the exact diagonal of S
+    frame_seg: torch.Tensor   # (N,) int32 frame ids of the sums (masked -> F)
+    frame_plan: segsum_kernel.SegmentPlan   # K9's plan of frame_seg
 
 
 def _build_reduced(camera_matrix, problem: SparseBAProblem, damping, kernel_threshold,
-                   lm_degree=None):
+                   lm_degree=None, frames=None):
     """Assemble the reduced system from the observation list. On the card:
     one K10 launch (the pose rows) and three K9 launches (H_pp, b_p, the
-    preconditioner's diagonal correction)."""
+    preconditioner's diagonal correction). ``frames`` is
+    :func:`plan_frames` of the problem, made here when None."""
     f = problem.poses.shape[0]
+    fi, plan = plan_frames(problem) if frames is None else frames
     l = problem.landmarks.shape[0]
     ex, ey, jpx, jpy, jlx, jly, w, chi = _per_obs_system(
         camera_matrix, problem.poses, problem.landmarks, problem.frame_idx, problem.lm_idx,
@@ -303,14 +319,13 @@ def _build_reduced(camera_matrix, problem: SparseBAProblem, damping, kernel_thre
     sw = sqw[:, None]
     wrx, wry = jpx * sw, jpy * sw           # (N, 6)
     lrx, lry = jlx * sw, jly * sw           # (N, 3)
-    fi = torch.where(problem.obs_mask, problem.frame_idx, f)  # pad -> drop row
     rx, ry = (ex * sqw)[:, None], (ey * sqw)[:, None]
 
     # H_pp[f] = sum_n wrx wrx^T + wry wry^T; an (N, 36) segment sum.
     outer_p = (wrx[:, :, None] * wrx[:, None, :] + wry[:, :, None] * wry[:, None, :]
                ).reshape(-1, 36)
-    h_pp = _segsum_frame_rows(outer_p, fi, f).reshape(f, 6, 6)
-    b_p = _segsum_frame_rows(wrx * rx + wry * ry, fi, f)
+    h_pp = _segsum_frame_rows(outer_p, fi, f, plan).reshape(f, 6, 6)
+    b_p = _segsum_frame_rows(wrx * rx + wry * ry, fi, f, plan)
     outer_l = (lrx[:, :, None] * lrx[:, None, :] + lry[:, :, None] * lry[:, None, :]
                ).reshape(-1, 9)
     h_ll = _segsum_lm(outer_l, problem.lm_idx, problem.obs_mask, l, lm_degree).reshape(l, 3, 3)
@@ -328,7 +343,7 @@ def _build_reduced(camera_matrix, problem: SparseBAProblem, damping, kernel_thre
     w_n = wrx[:, :, None] * lrx[:, None, :] + wry[:, :, None] * lry[:, None, :]   # (N, 6, 3)
     y_n = (w_n[:, :, None, :] * hinv_n[:, None, :, :]).sum(-1)        # (N, 6, 3)
     diag_corr = (y_n[:, :, None, :] * w_n[:, None, :, :]).sum(-1).reshape(-1, 36)
-    diag_corr = _segsum_frame_rows(diag_corr, fi, f).reshape(f, 6, 6)
+    diag_corr = _segsum_frame_rows(diag_corr, fi, f, plan).reshape(f, 6, 6)
 
     chi_sum = (chi * w).sum()
     nobs = (w > 0).sum().to(torch.int32)
@@ -344,7 +359,7 @@ def _build_reduced(camera_matrix, problem: SparseBAProblem, damping, kernel_thre
         h_pp_d=h_pp_d, b_p=b_p, h_ll_inv=h_ll_inv, b_l=b_l,
         w_rows_x=wrx, w_rows_y=wry, l_rows_x=lrx, l_rows_y=lry,
         frame_idx=torch.where(problem.obs_mask, problem.frame_idx, 0),
-        lm_idx=safe_l, precond=precond,
+        lm_idx=safe_l, precond=precond, frame_seg=fi, frame_plan=plan,
     )
     mask_f = problem.obs_mask.to(ex.dtype)
     return system, mask_f, chi_sum, nobs
@@ -377,7 +392,7 @@ def _coupling_apply(system: _ReducedSystem, mask_f: torch.Tensor, v: torch.Tenso
     s_l = _coupling_transpose(system, mask_f, v, num_lm, lm_degree)        # (L, 3)
     m_l = (system.h_ll_inv * s_l[:, None, :]).sum(-1)                      # (L, 3)
     y = _coupling_rows(system, mask_f, m_l, lm_degree)                     # (N, 6)
-    return _segsum_frame_rows(y, system.frame_idx, system.h_pp_d.shape[0])
+    return _segsum_frame_rows(y, system.frame_seg, system.h_pp_d.shape[0], system.frame_plan)
 
 
 def _gauge(v: torch.Tensor) -> torch.Tensor:
@@ -402,7 +417,7 @@ def _solve_pose_cg(system: _ReducedSystem, mask_f: torch.Tensor, num_lm: int, cg
     # rhs = -(b_p - W Hll^-1 b_l): b_l folded through the coupling path once.
     m_l = (system.h_ll_inv * system.b_l[:, None, :]).sum(-1)
     b_red = _segsum_frame_rows(_coupling_rows(system, mask_f, m_l, lm_degree),
-                               system.frame_idx, system.b_p.shape[0])
+                               system.frame_seg, system.b_p.shape[0], system.frame_plan)
     rhs = _gauge(-(system.b_p - b_red))
 
     rhs_norm = torch.clamp_min((rhs * rhs).sum(), 1e-30)
@@ -439,15 +454,17 @@ def sparse_ba_step(
     cg_iterations: int = 64,
     cg_tolerance: float = 1e-6,
     lm_degree: Optional[int] = None,
+    frames: Optional[Tuple[torch.Tensor, segsum_kernel.SegmentPlan]] = None,
 ) -> Tuple[SparseBAProblem, SparseBAStats]:
     """One LM/GN step on the tensors' device. Memory O(N + F + L); no (F, L)
     densification. ``lm_degree`` is :func:`pack_problem`'s degree for a packed
-    problem. With ``i`` CG iterations run, a step on the card launches K10
+    problem; ``frames`` is :func:`plan_frames` of the problem (made here when
+    None). With ``i`` CG iterations run, a step on the card launches K10
     ``2 + i`` times and K9 ``4 + i`` times."""
     l = problem.landmarks.shape[0]
     with stage("ba_build_reduced"):
         system, mask_f, chi_sum, nobs = _build_reduced(
-            camera_matrix, problem, damping, kernel_threshold, lm_degree)
+            camera_matrix, problem, damping, kernel_threshold, lm_degree, frames)
     with stage("ba_pose_cg"):
         dx_p, cg_rel = _solve_pose_cg(system, mask_f, l, cg_iterations, cg_tolerance, lm_degree)
     with stage("ba_back_substitute"):
@@ -475,8 +492,10 @@ def refine_sparse(
     ``pack=True`` (the JAX default) repacks the observations into the
     fixed-degree landmark-major layout first (:func:`pack_problem`); the
     returned problem keeps the caller's observation layout with the refined
-    poses and landmarks swapped in."""
+    poses and landmarks swapped in. The frame ids' plan is made once for all
+    steps."""
     work, degree = pack_problem(problem) if pack else (problem, None)
+    frames = plan_frames(work)
     dev = problem.uv.device
     stats = SparseBAStats(chi=torch.zeros((), device=dev),
                           num_obs=torch.zeros((), dtype=torch.int32, device=dev),
@@ -484,5 +503,6 @@ def refine_sparse(
     for _ in range(num_iterations):
         work, stats = sparse_ba_step(
             camera_matrix, work, damping=damping, kernel_threshold=kernel_threshold,
-            cg_iterations=int(cg_iterations), cg_tolerance=cg_tolerance, lm_degree=degree)
+            cg_iterations=int(cg_iterations), cg_tolerance=cg_tolerance, lm_degree=degree,
+            frames=frames)
     return problem._replace(poses=work.poses, landmarks=work.landmarks), stats
