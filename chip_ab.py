@@ -34,10 +34,12 @@ on inputs this checkout builds once (chip_smoke.py's, in
 build/chip_ab/kernels_inputs.pt): K1 at path B's 510 pairs and at its
 bootstrap pair (B = 1), K4 on path B (1,024 slots x 510 tracked frames; also
 its first 128 frames, whose GN rounds the plain version counts once, for
-``us_per_gn_round``), K5 on path D and K8 on path E (64 sequences x 128 slots
-x 126 frames); ``ms`` is the median of ``--reps`` CUDA-event times. Each
-output's SHA-256 shows whether the two checkouts agree bit for bit. Any
-checkout of the port since its serving slice runs it.
+``us_per_gn_round``), K5 on path D, K8 on path E (64 sequences x 128 slots
+x 126 frames), K2 on path B (``k2_path_b``) and K7 at path C's shape
+(``k7_fast``, ``k7_exact``: chip_smoke.match_problem, 1,024 queries x 2^20
+rows); ``ms`` is the median of ``--reps`` CUDA-event times (4x as many for
+K1, K2 and K7). Each output's SHA-256 shows whether the two checkouts agree
+bit for bit. Any checkout of the port since its serving slice runs it.
 
 ``phases`` (no OTHER_ROOT): K4's round broken into phases on path B. It
 builds csrc/track_frames.cu six times into build/vo_torch_kernels_diag/: as
@@ -232,7 +234,9 @@ def _prepare_kernel_inputs() -> None:
                                     rounds_out=rounds)
     seqs = chip_smoke.serving_inputs(64, 128, 128, DEFAULT_CONFIG, device)
     os.makedirs(os.path.dirname(KERNEL_INPUTS), exist_ok=True)
+    k7, _ = chip_smoke.match_problem(1024, 1 << 20, device)
     torch.save({"k1": _cpu(b["match_pairs"]), "k1_b1": _cpu(b["match_pairs_b1"]),
+                "k2": _cpu(b["join_candidates"]), "k7": _cpu(k7),
                 "k4": _cpu(b["track_frames"]), "k5": _cpu(d["track_frames"]),
                 "k8": _cpu(_k8_args(camera, DEFAULT_CONFIG, seqs)), "k4_head_rounds": rounds},
                KERNEL_INPUTS)
@@ -280,6 +284,11 @@ def _kernels(reps: int) -> dict:
     out["k8_path_e"] = {
         "ms": _ms(lambda: frame_kernel.track_frames_batched_cuda(*inp["k8"]), reps),
         "sha": _sha(frame_kernel.track_frames_batched_cuda(*inp["k8"]))}
+    out["k2_path_b"] = {"ms": _ms(lambda: frame_kernel.join_candidates_cuda(*inp["k2"]), 4 * reps),
+                        "sha": _sha(frame_kernel.join_candidates_cuda(*inp["k2"]))}
+    for key, fast in (("k7_fast", True), ("k7_exact", False)):
+        out[key] = {"ms": _ms(lambda: matcher_kernel.best_match_cuda(*inp["k7"], fast), 4 * reps),
+                    "sha": _sha(matcher_kernel.best_match_cuda(*inp["k7"], fast))}
     return out
 
 

@@ -10,13 +10,15 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      CUDA-event times and its bound on this card: K1 pair matcher (path B's
      510 pairs and its bootstrap pair, timed both, and ties across its tiles,
      all-masked frames and NaN garbage at N = 1024 and ragged N), K2 join
-     candidates, K3 record gather (path B's two pixel gathers and its
+     candidates (path B's, and targets outside [0, S) at depths 1, 2 and 4,
+     S = 1024 and 128), K3 record gather (path B's two pixel gathers and its
      appearance gather, also with indices past S), K4 fused frame loop and
      K5 its planar form on the main path's own inputs (S = 1024 slots x 512 frames; the plain K4/K5
      are Python loops: K4 is compared over the first 256 tracked frames, K5
      over the first 128; path B holds K4 to the plain run at full depth), K6 standalone solves (SE(3) and planar) at N = 1024 and 8192,
      K7 map-scale matcher (exact and fast) at Q = 1024, K = 2^20 with masked
-     rows holding NaN; K5's inputs are path D's; K8 batched frame loop at
+     rows holding NaN, and on synthetic.generate_match_ties' data (the fast
+     mode's rescored pairs a query counted on both); K5's inputs are path D's; K8 batched frame loop at
      N = 64 sequences x 128 slots x 126 tracked frames, SE(3) and planar, per
      sequence against K4/K5 launched alone and its first sequence against
      the plain version over all 126 frames; K9 segment sum and K10 table gather at the sparse-BA
@@ -158,12 +160,12 @@ def time_ms(fn, device, reps: int, warmup: int = 1) -> float:
 
 
 def device_events(prof):
-    """A profile's device events, the device-side spans of ``vo/`` ranges
-    left out."""
+    """A profile's device events, the device-side spans of ``vo/`` ranges and
+    of the profiler's own steps left out."""
     from torch.autograd import DeviceType
 
-    return [e for e in prof.events()
-            if e.device_type == DeviceType.CUDA and not e.name.startswith("vo/")]
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(("vo/", "ProfilerStep"))]
 
 
 def launch_times(fn, device, reps: int) -> dict:
@@ -388,6 +390,38 @@ def k1_edge_cases(kernel_fns, device) -> float:
     return 0.0
 
 
+def k2_edge_cases(kernel_fn, path_b_args, device) -> None:
+    """K2 against its plain version bit for bit beyond the pipeline's data:
+    path B's rows at depth 1 and 4 with a twentieth of the targets moved
+    outside [0, S) on both sides (valid and invalid lanes), and 128 lanes
+    (path E's width) with multiplicities up to 8 at depth 1, 2 and 4."""
+    import torch
+
+    from visual_odometry_tpu_torch.ops.kernels import frame_kernel
+
+    src, sv, dst, dv, _ = path_b_args
+    gen = torch.Generator(device="cpu").manual_seed(2)
+
+    def wild(x):   # a twentieth of the lanes aimed at -3..-1 or S..S+2
+        far = torch.randint(-3, 3, x.shape, generator=gen, dtype=torch.int32)
+        far = torch.where(far < 0, far, far + x.shape[1])
+        hit = torch.rand(x.shape, generator=gen) < 0.05
+        return torch.where(hit.to(x.device), far.to(x.device), x)
+
+    cases = [((wild(src), sv, wild(dst), dv), depth) for depth in (1, 4)]
+    f = 64
+    small = [torch.randint(0, 24, (f, 128), generator=gen, dtype=torch.int32),
+             torch.rand((f, 128), generator=gen) > 0.3,
+             torch.randint(-2, 30, (f, 128), generator=gen, dtype=torch.int32),
+             torch.rand((f, 128), generator=gen) > 0.3]
+    cases += [(tuple(x.to(device) for x in small), depth) for depth in (1, 2, 4)]
+    for args, depth in cases:
+        got = kernel_fn(*args, depth)
+        want = frame_kernel.join_candidates_plain(*args, depth)
+        require(all(torch.equal(x, y) for x, y in zip(got, want)),
+                f"K2: join candidates differ at S = {args[0].shape[1]}, depth {depth}")
+
+
 def compare_kernels(inputs, device, kernel_fns, reps: int = 10, launch_reps: int = 50):
     """K1-K4: run each kernel and its plain version on the same inputs; returns
     {name: row fields} and raises on disagreement."""
@@ -432,8 +466,10 @@ def compare_kernels(inputs, device, kernel_fns, reps: int = 10, launch_reps: int
     kc = kernel_fns["join_candidates"](*a)
     pc = frame_kernel.join_candidates_plain(*a)
     require(all(torch.equal(x, y) for x, y in zip(kc, pc)), "K2: join candidates differ")
+    k2_edge_cases(kernel_fns["join_candidates"], a, device)
     f, s = a[0].shape
-    bound_ms, bound_by = bound(nbytes(*a[:4]) + nbytes(*kc), f * s * s)   # one compare a pair
+    # Bytes: the four (F, S) inputs read once, the chains and flags written once.
+    bound_ms, bound_by = bound(nbytes(*a[:4]) + nbytes(*kc), 0.0)
     out["join_candidates"] = dict(
         max_abs_err=0.0, ms=time_ms(lambda: kernel_fns["join_candidates"](*a), device, reps),
         plain_ms=time_ms(lambda: frame_kernel.join_candidates_plain(*a), device, 3),
@@ -556,12 +592,20 @@ def match_problem(nq: int, nk: int, device, seed: int = 0):
 
 def compare_matchers(device, table, backend: str = "cuda", nq: int = 1024, nk: int = 1 << 20,
                      reps: int = 10):
-    """K7: exact and fast against the plain version at map scale."""
+    """K7: exact and fast against the plain version at map scale, on
+    match_problem's data and on synthetic.generate_match_ties' (negative gram
+    distances that clamp and tie, duplicates one tile apart, rows one bfloat16
+    ulp apart, NaN and inf in masked and live rows): indices and distances
+    bitwise. The fast mode's rescored (query, row) pairs are counted in a
+    separate call."""
     import torch
 
     from visual_odometry_tpu_torch.ops.kernels import matcher_kernel
+    from visual_odometry_tpu_torch.utils import synthetic
 
     args, pick = match_problem(nq, nk, device)
+    ties = tuple(torch.from_numpy(x).to(device) for x in synthetic.generate_match_ties(
+        np.random.default_rng(1), nq, nk))
     q, q_mask, db, db_mask = args
     d = q.shape[1]
     moved = nbytes(q, q_mask, db, db_mask) + nq * 8
@@ -578,13 +622,34 @@ def compare_matchers(device, table, backend: str = "cuda", nq: int = 1024, nk: i
         own = torch.from_numpy(pick).to(device)
         want = q_mask & db_mask[own]
         require(bool((idx[want] == own[want]).all()), f"K7 {name}: a query missed its own row")
-        if fast:   # the bfloat16 gram at the tensor cores' rate, the selection in float32
-            t_ops = 1e3 * (nq * nk * 2 * d / PEAK_BF16 + nq * nk * 3 / PEAK_FP32)
-            bound_ms, bound_by = max((1e3 * moved / PEAK_BYTES_S, "bytes"), (t_ops, "operations"))
+        tie_dist, tie_idx = matcher_kernel.best_match(*ties, backend=backend, fast=fast)
+        tie_dist_p, tie_idx_p = matcher_kernel.best_match_plain(*ties, fast=fast)
+        require(torch.equal(tie_idx, tie_idx_p) and torch.equal(tie_dist, tie_dist_p),
+                f"K7 {name}: differs from the plain version on generate_match_ties")
+        row = dict(max_abs_err=err, plain_ms=plain_ms)
+        if fast:
+            # The least the function needs: the bf16 gram at D padded to 16 on
+            # the tensor cores, and one compare a pair at the issue rate (the
+            # norms can ride in the MMA's free k-slots); the larger one bounds.
+            # This design's epilogue issues 3 a pair (an add, an fma, a
+            # compare), reported beside it.
+            t_mma = 1e3 * nq * nk * 2 * 16 / PEAK_BF16
+            t_epi = 1e3 * nq * nk * 1 / (PEAK_FP32 / 2)
+            bound_ms, bound_by = max((1e3 * moved / PEAK_BYTES_S, "bytes"),
+                                     (max(t_mma, t_epi), "operations"))
+            counts = []
+            for a in (args, ties):
+                counter = torch.zeros(1, dtype=torch.int64, device=device)
+                matcher_kernel.best_match_cuda(*a, fast=True, survivors=counter)
+                counts.append(int(counter.item()) / nq)
+            row.update(bound_ms_mma=t_mma, bound_ms_epilogue=t_epi,
+                       issue_ms_design_epilogue=3 * t_epi,
+                       survivors_per_query=counts[0], survivors_per_query_ties=counts[1])
         else:
-            bound_ms, bound_by = bound(moved, nq * nk * (2 * d + 3))
+            # 2 D + 3 separately rounded operations a pair, issued at half the FMA rate.
+            bound_ms, bound_by = bound(moved, nq * nk * (2 * d + 3), PEAK_FP32 / 2)
         table[name] = dict(
-            max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            row, bound_ms=bound_ms, bound_by=bound_by,
             ms=time_ms(lambda: matcher_kernel.best_match(*args, backend=backend, fast=fast),
                        device, reps),
             # No single PyTorch call computes a top-1 over K = 2^20 rows without the
@@ -1479,12 +1544,14 @@ def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1
     relocalize_frame on path C's: the entry points themselves, run inside
     ``profiling.stage_times`` so that each step the pipeline wraps in
     ``profiling.stage`` is sampled on the host clock and ended by a sync (ms,
-    median of ``reps`` after one warm-up). Then one more call of each under
-    torch.profiler gives the time of each of the port's kernels and the
-    device-busy share of the wall time, and a last one, profiled with the
+    median of ``reps`` after one warm-up). Then two more calls of each under
+    torch.profiler, the first its warm-up step, give the time of each of the
+    port's kernels and the device-busy share of the wall time (without the
+    warm-up step the profiler saw no K7 launch in path C's call, which comes
+    after a dozen profiled calls in one process), and a last one, profiled with the
     stage syncs on, where each stage's host time goes. ``after_wait_report``
     closes it."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from visual_odometry_tpu_torch.models import pipeline
     from visual_odometry_tpu_torch.parallel import multiseq, sparse_ba
@@ -1492,7 +1559,7 @@ def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1
     from visual_odometry_tpu_torch.utils.config import DEFAULT_CONFIG, VOConfig
 
     own = ("match_pairs", "join_candidates", "gather_rows", "track_frames", "picp_solve",
-           "best_match_scan", "best_match_fold", "segment_sum", "take_table",
+           "best_match_scan", "best_match_tc", "best_match_fold", "segment_sum", "take_table",
            "picp_linearize")   # csrc/*.cu name their kernels <this>_kernel
 
     def measured(fn):
@@ -1503,11 +1570,17 @@ def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1
                              for k, v in timer.samples.items()}}
         require(out["stages_ms"], "stages: the entry point ran no profiling.stage block")
         sync(device)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # A warm-up step of the profiler first: the profiled call is the second.
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            sync(device)
+            prof.step()
             t0 = time.perf_counter()
             fn()
             sync(device)
             wall = time.perf_counter() - t0
+            prof.step()
         on_card = device_events(prof)
         busy_us = sum(e.time_range.elapsed_us() for e in on_card)
         require(busy_us > 0, "stages: the profiler saw no device time")

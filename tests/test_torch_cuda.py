@@ -87,7 +87,8 @@ def test_match_pairs_kernel_ties_across_tiles(dev):
         assert bool((got[2][-1] == 3.4e38).all()) and not bool(got[3][-1].any())
 
 
-@pytest.mark.parametrize("f,s,depth", [(4, 40, 1), (6, 256, 2), (3, 1024, 3)])
+@pytest.mark.parametrize("f,s,depth", [(4, 40, 1), (6, 256, 2), (3, 1024, 3), (8, 128, 1),
+                                       (8, 128, 4), (5, 1024, 1), (5, 1024, 4)])
 def test_join_candidates_kernel_equals_plain(dev, f, s, depth):
     rng = np.random.default_rng(s)
     src = torch.from_numpy(rng.integers(0, s // 3, (f, s)).astype(np.int32)).to(dev)
@@ -98,6 +99,30 @@ def test_join_candidates_kernel_equals_plain(dev, f, s, depth):
     ref = frame_kernel.join_candidates_plain(src, sv, dst, dv, depth)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+    assert bool(got.overflow.any())
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+@pytest.mark.parametrize("s", [128, 1024])
+def test_join_candidates_kernel_out_of_range_targets(dev, s, depth):
+    """Targets outside [0, S) on valid and invalid lanes of both sides
+    (K2 scans for them; the tables take the rest), multiplicities above the
+    depth: bitwise against the plain version."""
+    rng = np.random.default_rng(s + depth)
+    f = 6
+    src = rng.integers(-3, s // 8, (f, s)).astype(np.int32)
+    dst = rng.integers(-3, s // 6, (f, s)).astype(np.int32)
+    src[:, ::5] += s
+    dst[:, 1::7] += s
+    src[0, :] = -1                       # one frame whose sources all miss
+    args = [torch.from_numpy(x).to(dev) for x in (
+        src, rng.uniform(size=(f, s)) > 0.2, dst, rng.uniform(size=(f, s)) > 0.2)]
+    got = frame_kernel.join_candidates_cuda(*args, depth)
+    ref = frame_kernel.join_candidates_plain(*args, depth)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    far = (args[2] < 0) | (args[2] >= s)
+    assert bool((far & args[3] & got.ok[:, 0]).any())   # an out-of-range chain was found
     assert bool(got.overflow.any())
 
 
@@ -353,6 +378,42 @@ def test_best_match_all_masked_database(dev):
     for fast in (False, True):
         dist, idx = matcher_kernel.best_match(q, qm, db, dbm, fast=fast)
         assert bool((dist == matcher_kernel.BIG).all()) and bool((idx == 0).all())
+
+
+@pytest.mark.parametrize("nk", [1 << 16, 1 << 20])
+def test_best_match_fast_on_match_ties(dev, nk):
+    """K7's tensor-core filter on data built to trip it
+    (synthetic.generate_match_ties: negative gram distances that clamp and
+    tie, duplicates one tile apart, rows one bfloat16 ulp apart, NaN and inf
+    in masked and live rows), then with every row masked: indices and
+    distances bitwise against the plain version, both precisions; the fast
+    mode reports the pairs it rescored."""
+    q, qm, db, dbm = (torch.from_numpy(x).to(dev) for x in synthetic.generate_match_ties(
+        np.random.default_rng(3), 1024, nk))
+    for mask in (dbm, torch.zeros_like(dbm)):
+        for fast in (False, True):
+            counter = torch.zeros(1, dtype=torch.int64, device=dev)
+            dist, idx = matcher_kernel.best_match_cuda(q, qm, db, mask, fast, survivors=counter)
+            dist_p, idx_p = matcher_kernel.best_match_plain(q, qm, db, mask, fast=fast)
+            assert torch.equal(idx, idx_p) and torch.equal(dist, dist_p)
+            rescored = int(counter.item())
+            if not fast or not bool(mask.any()):
+                assert rescored == 0
+            else:
+                assert 1024 <= rescored <= 1024 * 256   # a seeded threshold: few a query
+    assert bool((idx == 0).all())
+
+
+@pytest.mark.parametrize("d", [7, 16, 24])
+def test_best_match_fast_other_widths(dev, d):
+    """D = 7 and 16 take the tensor-core scan's generic instance, D = 24 the
+    bf16-rounded gram on the FP32 pipes: bitwise against the plain version
+    on generate_match_ties' data at that width."""
+    q, qm, db, dbm = (torch.from_numpy(x).to(dev) for x in synthetic.generate_match_ties(
+        np.random.default_rng(d), 512, 1 << 16, dim=d))
+    dist, idx = matcher_kernel.best_match_cuda(q, qm, db, dbm, True)
+    dist_p, idx_p = matcher_kernel.best_match_plain(q, qm, db, dbm, fast=True)
+    assert torch.equal(idx, idx_p) and torch.equal(dist, dist_p)
 
 
 def test_planar_run_sequence_and_relocalize_cuda(dev):

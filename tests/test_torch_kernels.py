@@ -73,6 +73,78 @@ def test_join_candidates_plain_matches_pallas(rng):
     assert got.overflow.any() and got.ok[:, 1].any()
 
 
+def _wild_join_inputs(rng, f, s):
+    """Targets in [-3, S + 3) on both sides, so some valid and some invalid
+    lanes point outside [0, S); multiplicities up to ~8 over S / 12 targets."""
+    src = rng.integers(0, s // 12, (f, s)).astype(np.int32)
+    dst = rng.integers(-3, s // 10, (f, s)).astype(np.int32)
+    src[:, ::9] = rng.integers(s, s + 3, src[:, ::9].shape)
+    src[:, 4::11] = -2
+    dst[:, 2::13] = rng.integers(s, s + 3, dst[:, 2::13].shape)
+    return src, rng.uniform(size=(f, s)) > 0.25, dst, rng.uniform(size=(f, s)) > 0.25
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_join_candidates_plain_matches_pallas_out_of_range(rng, depth):
+    """Targets outside [0, S) on valid and invalid lanes, at depth 1, 2 and
+    4: the port's plain version compares them as the Pallas kernel does."""
+    src, sv, dst, dv = _wild_join_inputs(rng, 5, 128)
+    ref = jfk.join_candidates(jnp.asarray(src), jnp.asarray(sv), jnp.asarray(dst),
+                              jnp.asarray(dv), depth, interpret=True)
+    got = tfk.join_candidates(T(src), T(sv), T(dst), T(dv), depth)
+    np.testing.assert_array_equal(got.idx.numpy(), np.asarray(ref.lo + 128 * ref.hi))
+    np.testing.assert_array_equal(got.ok.numpy(), np.asarray(ref.ok))
+    np.testing.assert_array_equal(got.overflow.numpy(), np.asarray(ref.overflow))
+    far = (dst < 0) | (dst >= 128)
+    assert (got.ok[:, 0].numpy() & far).any() and got.overflow.any()
+
+
+def _join_tables(src, sv, dst, dv, depth):
+    """csrc/join_candidates.cu's algorithm in numpy: per-target level tables
+    built by minima over the valid source lanes above the previous level, a
+    lookup per current lane, and a scan for targets outside [0, S)."""
+    f, s = src.shape
+    idx = np.zeros((f, depth, s), np.int32)
+    ok = np.zeros((f, depth, s), bool)
+    over = np.zeros((f, s), bool)
+    for i in range(f):
+        inside = sv[i] & (src[i] >= 0) & (src[i] < s)
+        prev = np.full(s, -1)
+        for k in range(depth + 1):
+            level = np.full(s, s)
+            for j in np.flatnonzero(inside):
+                t = src[i, j]
+                if j > prev[t]:
+                    level[t] = min(level[t], j)
+            for jp in range(s):
+                t = dst[i, jp]
+                if not dv[i, jp] or t < 0 or t >= s or level[t] == s:
+                    continue
+                if k < depth:
+                    idx[i, k, jp], ok[i, k, jp] = level[t], True
+                else:
+                    over[i, jp] = True
+            prev = level
+        for jp in np.flatnonzero(dv[i] & ((dst[i] < 0) | (dst[i] >= s))):
+            hits = np.flatnonzero(sv[i] & (src[i] == dst[i, jp]))
+            idx[i, :min(depth, hits.size), jp] = hits[:depth]
+            ok[i, :min(depth, hits.size), jp] = True
+            over[i, jp] = hits.size > depth
+    return idx, ok, over
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_join_tables_equal_plain(rng, depth):
+    """The card kernel's table algorithm, emulated, gives the plain version's
+    chains and flags exactly (the kernel itself is held to the plain version
+    on the card, tests/test_torch_cuda.py)."""
+    args = _wild_join_inputs(rng, 4, 96)
+    got = _join_tables(*args, depth)
+    ref = tfk.join_candidates_plain(*(T(x) for x in args), depth)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r.numpy())
+
+
 @pytest.mark.parametrize("f,s,d", [(5, 64, 2), (2, 256, 10), (3, 100, 2), (4, 100, 10),
                                    (3, 50, 3)])
 def test_gather_rows_plain_matches_pallas(rng, f, s, d):

@@ -165,7 +165,7 @@ _SIGNATURES = {
     "vo_track_frames_planar": [_P] * 12 + [_I] * 5 + [_P],
     "vo_picp_solve": [_P] * 6 + [_I] * 3 + [_P],
     "vo_picp_solve_se2": [_P] * 6 + [_I] * 3 + [_P],
-    "vo_best_match": [_P] * 7 + [_I] * 5 + [_P],
+    "vo_best_match": [_P] * 9 + [_I] * 5 + [_P],
     "vo_track_frames_batched": [_P] * 13 + [_I] * 6 + [_P],
     "vo_track_frames_batched_planar": [_P] * 13 + [_I] * 6 + [_P],
     "vo_segment_sum": [_P, _P, _P, _P, _I, _I, _P],

@@ -6,7 +6,9 @@ Replaces ``visual_odometry_tpu/ops/pallas/matcher_kernel.py``:
 and 128-row tile of a pair, four rows a lane in registers against the other
 frame staged in shared memory, FP32 pipes) and ``best_match_pallas`` with
 ``csrc/best_match.cu`` (query tiles x database splits, then a fold of the
-splits); both are bound by the FP32 instruction rate, see the sources' headers.
+splits). K1 and K7's exact mode are bound by the FP32 instruction rate; K7's
+fast mode runs its bf16 gram on the tensor cores and re-selects exactly on
+the rows a proven error bound cannot rule out, see the sources' headers.
 
 Distances use the gram form ``(|a|^2 + |b|^2) - 2 a.b`` with every dot product
 and squared norm summed in descriptor order from separately rounded products,
@@ -149,9 +151,12 @@ def best_match_plain(queries, q_mask, db, db_mask, fast: bool = False):
     return torch.where(q_mask, dist, BIG), arg.to(torch.int32)
 
 
-def best_match_cuda(queries, q_mask, db, db_mask, fast: bool = False):
+def best_match_cuda(queries, q_mask, db, db_mask, fast: bool = False, survivors=None):
     """Launch K7. queries (Q, D) and db (K, D) float32, masks bool, contiguous
-    on one CUDA device; K >= 1, D <= 32."""
+    on one CUDA device; K >= 1, D <= 32. ``survivors``, a (1,) int64 tensor
+    on the same device or None: the fast mode at D <= 16 adds to it the
+    (query, row) pairs its tensor-core filter could not rule out and
+    rescored exactly (csrc/best_match.cu); nothing else writes it."""
     nq, d = queries.shape
     nk = db.shape[0]
     dev = _lib.cuda_device(queries)
@@ -161,16 +166,21 @@ def best_match_cuda(queries, q_mask, db, db_mask, fast: bool = False):
     _lib.check(q_mask, "q_mask", torch.bool, (nq,), dev)
     _lib.check(db, "db", torch.float32, (nk, d), dev)
     _lib.check(db_mask, "db_mask", torch.bool, (nk,), dev)
-    # Enough (query tile, database split) CTAs of 128 threads to fill the card.
+    if survivors is not None:
+        _lib.check(survivors, "survivors", torch.int64, (1,), dev)
+    # Enough (128-query tile, database split) CTAs to fill the card; the fast
+    # mode's tensor-core scan takes 256 queries a CTA over the same splits.
     q_tiles = max(1, -(-nq // _TQ))
     splits = max(1, min(-(-nk // _TK), -(-2048 // q_tiles)))
     part_key = torch.empty((splits, nq), dtype=torch.int64, device=dev)
+    seed = torch.empty((nq,), dtype=torch.int32, device=dev) if fast and d <= 16 else None
     dist = torch.empty((nq,), dtype=torch.float32, device=dev)
     idx = torch.empty((nq,), dtype=torch.int32, device=dev)
     _lib.launch(
         "best_match_fast" if fast else "best_match", "vo_best_match", dev,
-        *(t.data_ptr() for t in (queries, q_mask, db, db_mask, part_key, dist, idx)),
-        nq, nk, d, splits, int(fast),
+        *(t.data_ptr() for t in (queries, q_mask, db, db_mask, part_key)),
+        *(None if t is None else t.data_ptr() for t in (seed, survivors)),
+        *(t.data_ptr() for t in (dist, idx)), nq, nk, d, splits, int(fast),
     )
     return dist, idx
 

@@ -149,3 +149,57 @@ def generate_ba_corridor(
         obs_mask=dev(mask),
     )
     return _K.copy(), problem, int(mask.sum())
+
+
+def _bf16_exact(x: np.ndarray) -> np.ndarray:
+    """float32 values rounded to the nearest bfloat16 (ties to even), finite inputs."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32).astype(np.uint64)
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def generate_match_ties(rng: np.random.Generator, num_queries: int, num_rows: int,
+                        dim: int = 10):
+    """A top-1 problem built to trip a fast matcher that selects on a rounded
+    gram: (queries, q_mask, db, db_mask) as numpy arrays, num_rows >= 1024.
+
+    The rows are bfloat16-exact. Each group of four queries (one group per
+    1,024 rows) aims at a row j + 256, one 256-row tile past a neighbour that
+    the group plants at a lower column, by turns: row j with one component
+    +0.03, row j an exact duplicate, or row j + 1 one bfloat16 ulp away in one
+    component. The queries are the row scaled by 1 - 2^-10 (its bfloat16
+    rounding is the row, its norm is smaller, so its gram distances to the
+    row and to the neighbour are both negative: they clamp to 0 and the lower
+    column wins, where an unclamped selection takes the row after a +0.03
+    neighbour), the row itself, the row scaled by 1 - 2^-9, and a point far
+    from every row. A tenth of the rows is masked and holds NaN or inf, eight
+    other live rows hold a NaN or an inf (they never win), and a twentieth of
+    the queries is masked."""
+    db = _bf16_exact(rng.uniform(-1.0, 1.0, (num_rows, dim)).astype(np.float32))
+    q = rng.uniform(-1.0, 1.0, (num_queries, dim)).astype(np.float32)
+    db_mask = rng.uniform(size=num_rows) > 0.1
+    planted = []
+    for g in range(min(num_queries // 4, num_rows // 1024)):
+        j = 1024 * g + int(rng.integers(0, 512))
+        row = db[j + 256]
+        c = g % dim
+        near = j + 1 if g % 3 == 2 else j
+        db[near] = row
+        if g % 3 == 0:
+            db[near, c] = _bf16_exact(np.float32([row[c] + np.float32(0.03)]))[0]
+        elif g % 3 == 2:
+            db[near, c] = (row[c:c + 1].view(np.uint32) + np.uint32(0x10000)).view(np.float32)[0]
+        db_mask[[near, j + 256]] = True
+        planted += [near, j + 256]
+        q[4 * g] = row * np.float32(1.0 - 2.0 ** -10)
+        q[4 * g + 1] = row
+        q[4 * g + 2] = row * np.float32(1.0 - 2.0 ** -9)
+        q[4 * g + 3] = np.float32(3.0)
+    db[~db_mask] = np.nan
+    db[np.flatnonzero(~db_mask)[::3]] = np.inf
+    live = np.setdiff1d(np.flatnonzero(db_mask), planted)
+    bad = live[rng.permutation(live.size)[:8]]
+    db[bad[:4], 1] = np.nan
+    db[bad[4:], 2] = np.inf
+    q_mask = rng.uniform(size=num_queries) > 0.05
+    return q, q_mask, db, db_mask
