@@ -23,11 +23,13 @@ the port since its serving slice runs it.
 pixel (510 x 1024 x 2) gathers and of K10 as a sparse-BA step calls it
 (R = 12 into (12, N), R = 6 into (N, 6), N = 592,896 slots, T = 512), of K9
 at the same N and T (R = 36 and 6; over one plan of the ids in a checkout
-that makes plans), of K6 at N = 1024 and of K11 at N = 8192, beside
+that makes plans), of K6 at N = 1024 (``k6_n1024``), of the planar K6 at
+N = 8192 (``k6_se2_n8192``) and of K11 at N = 8192, beside
 ``torch.gather`` and
 ``index_select`` on the same inputs: ``ms``, CUDA events around one call,
 and ``host_ms``, the host clock around one call with no sync, each the median
-of ``--reps``. Both checkouts need K3's record form and K10's strided table.
+of ``--reps``; the K6 and K11 rows also the profiler's device time of a
+call (all its kernels) and of the kernel alone, over up to 50 calls. Both checkouts need K3's record form and K10's strided table.
 
 ``kernels``: the frame-loop kernels and K1 through each checkout's wrappers,
 on inputs this checkout builds once (chip_smoke.py's, in
@@ -71,7 +73,29 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
-def _timings(fn, reps: int) -> dict:
+def _device_ms(fn, reps: int, kernel: str) -> dict:
+    """Under the profiler, ``reps`` calls: ``device_ms``, the device time of
+    every kernel a call launches, summed, over ``reps``; ``kernel_device_ms``,
+    the mean device time of the kernels whose name holds ``kernel``, and
+    their count (the profiler may drop some events of a window)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    seen = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    own = [e.time_range.elapsed_us() for e in seen if kernel in e.name]
+    return {"device_ms": sum(e.time_range.elapsed_us() for e in seen) / 1e3 / reps,
+            "kernel_device_ms": sum(own) / 1e3 / max(len(own), 1), "kernels_seen": len(own)}
+
+
+def _timings(fn, reps: int, kernel: str = "") -> dict:
+    """``ms`` (CUDA events) and ``host_ms`` (host clock, no sync) of one call,
+    medians of ``reps``; with ``kernel``, also the profiler's times
+    (_device_ms) over up to 50 calls."""
     import torch
 
     fn()
@@ -91,7 +115,10 @@ def _timings(fn, reps: int) -> dict:
         fn()
         host.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    return {"ms": statistics.median(ms), "host_ms": 1e3 * statistics.median(host)}
+    out = {"ms": statistics.median(ms), "host_ms": 1e3 * statistics.median(host)}
+    if kernel:
+        out.update(_device_ms(fn, min(reps, 50), kernel))
+    return out
 
 
 def _serving(reps: int) -> dict:
@@ -156,10 +183,15 @@ def _launch(reps: int) -> dict:
         out[f"k9_r{r}"] = _timings(lambda: segsum_kernel.segment_sum_small(vals, seg, 512, **kw),
                                    reps)
     args, _ = chip_smoke.solve_problem(1024, False, device)
-    out["k6_n1024"] = _timings(lambda: picp_kernel.solve_fused(*args, backend="cuda"), reps)
+    out["k6_n1024"] = _timings(lambda: picp_kernel.solve_fused(*args, backend="cuda"), reps,
+                               "picp_solve")
+    args, _ = chip_smoke.solve_problem(8192, True, device)
+    out["k6_se2_n8192"] = _timings(lambda: picp_kernel.solve_se2_fused(*args, backend="cuda"),
+                                   reps, "picp_solve")
     cam, pts = chip_smoke.linearize_problem(8192, device, seed=1)
     head = (cam.camera_matrix, cam.world_in_camera, cam.params())
-    out["k11_n8192"] = _timings(lambda: picp_kernel.linearize(*head, *pts, 1e4), reps)
+    out["k11_n8192"] = _timings(lambda: picp_kernel.linearize(*head, *pts, 1e4), reps,
+                                "picp_linearize")
     return out
 
 

@@ -28,7 +28,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      layouts a step uses, the table read in place through its strides); one
      sparse-BA step at 1,536 poses on the card against the CPU's; K3 and K10 rows and their library calls
      carry device_ms (profiler) and host_ms (host clock, no sync) beside
-     ms; K11 linearization at N = 1024 and 8192;
+     ms; K6 and K11 rows carry them too, with their launch geometry, GN
+     rounds and device us a round (K6), and the launch floor (a one-float
+     fill's times) beside the bound;
+     K11 linearization at N = 1024 and 8192, twice bit for bit alike;
   4. path A: the reference-format applications — generate_dataset (40 frames,
      400 landmarks), apps.run_vo_complete, run_vo_se2, run_vo_da_known and
      run_relocalize (both matcher precisions) on cuda, apps.run_evaluation —
@@ -208,6 +211,14 @@ def prefixed(prefix: str, row: dict) -> dict:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def same_bits(*pairs) -> bool:
+    """Whether each (a, b) pair of 4-byte tensors holds the same bits."""
+    import torch
+
+    return all(torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+               for a, b in pairs)
 
 
 def bound(bytes_moved: float, ops: float, peak_ops: float = PEAK_FP32):
@@ -534,15 +545,29 @@ def solve_problem(n: int, planar: bool, device, seed: int = 0):
     return head + (world.to(device), uv.to(device), w.to(device), 30, 1e4, 1.0, 1e-12), gt
 
 
-def compare_solves(device, table, backend: str = "cuda", reps: int = 10):
+def launch_floor(device, reps: int = 50) -> dict:
+    """A one-float fill through launch_times: what one launch costs on this
+    card and host, whatever the kernel does, printed beside K6's and K11's
+    bounds."""
+    import torch
+
+    tiny = torch.empty(1, device=device)
+    return launch_times(lambda: tiny.fill_(0.0), device, reps)
+
+
+def compare_solves(device, table, backend: str = "cuda", reps: int = 10, launch_reps: int = 50):
     """K6: both standalone solves against their plain versions at N = 1024 and
-    N = 8192 (more points than the block has threads)."""
+    N = 8192 (clusters of 4 and of 8 CTAs of 256 threads), bit for bit
+    expected. Each row: the wrapper's ms, the launch alone with its inputs
+    prepared (launch_times: ms, device_ms, host_ms), the GN rounds and the
+    device us a round, the geometry, and the launch floor beside the bound."""
     from visual_odometry_tpu_torch.ops.kernels import picp_kernel
 
+    floor = launch_floor(device, launch_reps) if backend == "cuda" else None
     for planar, name in ((False, "picp_solve"), (True, "picp_solve_se2")):
         fn = picp_kernel.solve_se2_fused if planar else picp_kernel.solve_fused
         plain = picp_kernel.solve_se2_fused_plain if planar else picp_kernel.solve_fused_plain
-        row = dict(max_abs_err=0.0, library_ms=None)
+        row = dict(max_abs_err=0.0, library_ms=None, bitwise=True)
         for n in (1024, 8192):
             args, gt = solve_problem(n, planar, device)
             pose, stats = fn(*args, backend=backend)
@@ -555,20 +580,29 @@ def compare_solves(device, table, backend: str = "cuda", reps: int = 10):
                     f"K6 {name} N={n}: inlier counts differ")
             require(float((pose.cpu() - gt).abs().max()) < 5e-3,
                     f"K6 {name} N={n}: the solve missed the ground-truth pose")
-            ms = time_ms(lambda: fn(*args, backend=backend), device, reps)
-            launch_ms = None
-            if backend == "cuda":   # the launch alone, the parameter row packed beforehand
-                head, tail = (args[:3], args[4:]) if planar else (args[:3], args[3:])
-                params = picp_kernel.pack_params(
-                    head[0], head[2], head[1], tail[4], tail[5], tail[6], False, False, 0.0,
-                    planar, args[3] if planar else None, k_inverse=False)
-                packed = (params, *tail[:3], tail[3], 1, planar)
-                launch_ms = time_ms(lambda: picp_kernel._solve_cuda(*packed), device, reps)
-            moved = n * 6 * 4 + (64 if planar else 40) * 4 + 19 * 4
+            bitwise = same_bits((pose, pose_p), *zip(stats, stats_p))
+            ctas, threads = picp_kernel.solve_geometry(n)
+            moved = n * 6 * 4 + (9 + 12 + 4 + (24 if planar else 0)) * 4 + 19 * 4
             bound_ms, bound_by = bound(moved, rounds[0] * n * ROUND_FLOPS[planar])
+            entry = dict(ms=time_ms(lambda: fn(*args, backend=backend), device, reps),
+                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         gn_rounds=rounds[0], bitwise=bitwise, ctas=ctas, threads=threads,
+                         cluster=ctas)
+            if backend == "cuda":   # the launch alone, its inputs prepared beforehand
+                head, tail = args[:-7], args[-7:]
+                world, meas, w, iters, kt, damping, tol = tail
+                prepared = (head[0], head[1], head[2],
+                            picp_kernel.mount_rows(head[3]).to(device) if planar else None,
+                            world, meas, w, iters, 1, (kt, 0.0, damping, tol, 0.0))
+                alone = launch_times(lambda: picp_kernel._solve_cuda(*prepared), device,
+                                     launch_reps)
+                entry.update(launch_ms=alone["ms"], device_ms=alone["device_ms"],
+                             host_ms=alone["host_ms"])
+                entry["us_per_round"] = 1e3 * alone["device_ms"] / rounds[0]
+                entry["launch_floor"] = floor
             row["max_abs_err"] = max(row["max_abs_err"], err)
-            row[f"n{n}"] = dict(ms=ms, launch_ms=launch_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by, gn_rounds=rounds[0])
+            row["bitwise"] = row["bitwise"] and bitwise
+            row[f"n{n}"] = entry
         # The row's times are those of the shape its path runs: path C solves
         # 1024 matches in SE(3); the standalone planar solve takes N = 8192.
         row.update(row["n8192" if planar else "n1024"])
@@ -908,16 +942,21 @@ def linearize_problem(n: int, device, seed: int = 0):
                       for x in (world, meas, np.ones(n, np.float32)))
 
 
-def compare_linearize(device, table, reps: int = 10):
-    """K11 against its plain version at N = 1024 and N = 8192, robust kernel
-    thresholds that keep and that split the points, ``keep_outliers`` both ways."""
+def compare_linearize(device, table, reps: int = 10, launch_reps: int = 50):
+    """K11 against its plain version at N = 1024 and N = 8192 (4 and 32 CTAs
+    of 256 threads), robust kernel thresholds that keep and that split the
+    points, ``keep_outliers`` both ways, bit for bit expected; two launches
+    with the same bits. Each row: the wrapper's ms, the launch alone with its
+    inputs prepared (launch_times), the geometry, the byte bound and the
+    launch floor beside it."""
     from visual_odometry_tpu_torch.ops.kernels import picp_kernel
 
-    row = dict(max_abs_err=0.0, library_ms=None)
+    floor = launch_floor(device, launch_reps)
+    row = dict(max_abs_err=0.0, library_ms=None, bitwise=True)
     for n in (1024, 8192):
         cam, pts = linearize_problem(n, device)
         head = (cam.camera_matrix, cam.world_in_camera, cam.params())
-        err = 0.0
+        err, bitwise = 0.0, True
         for kt, keep in ((1e4, False), (2e3, True)):
             h, b, st = picp_kernel.linearize(*head, *pts, kt, keep, backend="cuda")
             hp, bp, stp = picp_kernel.linearize_plain(*head, *pts, kt, keep)
@@ -927,16 +966,22 @@ def compare_linearize(device, table, reps: int = 10):
             require(err <= K11_RTOL, f"K11 N={n}: H or b differs from the plain version by {err}")
             require(int(st.num_inliers) == int(stp.num_inliers) and 0 < int(st.num_inliers) < n,
                     f"K11 N={n}: inlier counts differ or the threshold split nothing")
-        params = picp_kernel.pack_params(*head[:1], head[2], head[1], 1e4, 0.0, 0.0, False, False,
-                                         0.0, k_inverse=False)
-        bound_ms, bound_by = bound(n * 6 * 4 + 40 * 4 + 45 * 4, n * ROUND_FLOPS[False])
+            bitwise = bitwise and same_bits((h, hp), (b, bp), *zip(st, stp))
+            again = picp_kernel.linearize(*head, *pts, kt, keep, backend="cuda")
+            require(same_bits((h, again[0]), (b, again[1]), *zip(st, again[2])),
+                    f"K11 N={n}: two launches gave different bits")
+        ctas, threads = picp_kernel.linearize_geometry(n)
+        bound_ms, bound_by = bound(n * 6 * 4 + 25 * 4 + 45 * 4, n * ROUND_FLOPS[False])
+        prepared = tuple(x.contiguous() for x in head) + pts + (1e4, False)
+        alone = launch_times(lambda: picp_kernel._linearize_cuda(*prepared), device, launch_reps)
         row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["bitwise"] = row["bitwise"] and bitwise
         row[f"n{n}"] = dict(
             ms=time_ms(lambda: picp_kernel.linearize(*head, *pts, 1e4, backend="cuda"), device,
                        reps),
-            launch_ms=time_ms(lambda: picp_kernel._linearize_cuda(params, *pts), device, reps),
+            launch_ms=alone["ms"], device_ms=alone["device_ms"], host_ms=alone["host_ms"],
             plain_ms=time_ms(lambda: picp_kernel.linearize_plain(*head, *pts, 1e4), device, 3),
-            bound_ms=bound_ms, bound_by=bound_by)
+            bound_ms=bound_ms, bound_by=bound_by, launch_floor=floor, bitwise=bitwise, ctas=ctas, threads=threads, cluster=1)
     row.update(row["n8192"])
     table["picp_linearize"] = row
 

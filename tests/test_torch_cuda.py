@@ -309,31 +309,93 @@ def _solve_case(dev, n, planar, seed=0):
     return cam, gt.to(dev), world.to(dev), uv.to(dev), w.to(dev)
 
 
-@pytest.mark.parametrize("planar", [False, True])
-@pytest.mark.parametrize("n", [100, 1024, 1500, 8192])
-@pytest.mark.parametrize("tol,min_inl", [(1e-12, 0.0), (-1.0, 0.0), (1e-12, 1e9)])
-def test_picp_solve_kernel_equals_plain(dev, n, planar, tol, min_inl):
-    cam, gt, world, uv, w = _solve_case(dev, n, planar)
+def _k6(dev, planar):
+    cam = synthetic.default_camera(device=dev)
     head = (cam.camera_matrix, cam.world_in_camera, cam.params())
     if planar:
-        fn, head, name = picp_kernel.solve_se2_fused, head + (_mount(dev),), "picp_solve_se2"
-    else:
-        fn, name = picp_kernel.solve_fused, "picp_solve"
+        return cam, picp_kernel.solve_se2_fused, head + (_mount(dev),), "picp_solve_se2"
+    return cam, picp_kernel.solve_fused, head, "picp_solve"
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32)
+
+
+# K6's launch geometry changes at 256 and 2,048 points (lanes loop over
+# points above 2,048, and read them from global memory above 8,192), K11's
+# at 256 (picp_kernel.solve_geometry, linearize_geometry).
+@pytest.mark.parametrize("planar", [False, True])
+@pytest.mark.parametrize("n", [1, 100, 1024, 1025, 1500, 4096, 8192, 8193])
+@pytest.mark.parametrize("tol,min_inl", [(1e-12, 0.0), (-1.0, 0.0), (1e-12, 1e9)])
+def test_picp_solve_kernel_equals_plain(dev, n, planar, tol, min_inl):
+    """K6 against its plain version, which adds in the kernel's order at the
+    kernel's geometry: the same bits."""
+    cam, gt, world, uv, w = _solve_case(dev, n, planar)
+    cam, fn, head, name = _k6(dev, planar)
     args = head + (world, uv, w, 12, 1e4, 1.0, tol)
     _lib.reset_launches()
     pose, stats = fn(*args, min_num_inliers=min_inl)
     assert _lib.launches[name] == 1
     pose_p, stats_p = fn(*args, min_num_inliers=min_inl, backend="torch")
     err = float((pose - pose_p).abs().max())
-    print(f"K6 {name} N={n} tol={tol} min_inl={min_inl}: max |dpose| = {err}")
+    print(f"K6 {name} N={n} geometry {picp_kernel.solve_geometry(n)} tol={tol} "
+          f"min_inl={min_inl}: max |dpose| = {err}")
     assert err <= 1e-5
-    assert int(stats.num_inliers) == int(stats_p.num_inliers)
-    assert float((stats.chi_inliers - stats_p.chi_inliers).abs()) <= 1e-5 * float(
-        stats_p.chi_inliers.abs() + 1)
+    assert torch.equal(_bits(pose), _bits(pose_p))
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(stats, stats_p))
+    assert stats.num_inliers.dtype == torch.int32
     if min_inl > 0:   # below the inlier floor the pose stays (planar: up to c^-1 c rounding)
         assert float((pose - cam.world_in_camera).abs().max()) <= 1e-6
-    else:
+    elif n >= 100:
         assert float((pose - gt).abs().max()) < 5e-3
+
+
+@pytest.mark.parametrize("planar", [False, True])
+@pytest.mark.parametrize("n", [100, 8192, 8193])
+def test_picp_solve_kernel_sanitizes_dead_slots(dev, n, planar):
+    """NaN and inf in dead slots, not sanitized by the caller: K6 gives the
+    bits of the sanitized call, and its plain version the same bits."""
+    cam, gt, world, uv, w = _solve_case(dev, n, planar)
+    cam, fn, head, name = _k6(dev, planar)
+    dead = w <= 0
+    bad_world = torch.where(dead[:, None], float("nan"), world)
+    bad_world[::18] = torch.where(dead[::18, None], float("inf"), bad_world[::18])
+    bad_uv = torch.where(dead[:, None], float("nan"), uv)
+    clean = fn(*head, world, torch.where(dead[:, None], 0.0, uv), w, 12, 1e4, 1.0, 1e-12)
+    got = fn(*head, bad_world, bad_uv, w, 12, 1e4, 1.0, 1e-12)
+    plain = fn(*head, bad_world, bad_uv, w, 12, 1e4, 1.0, 1e-12, backend="torch")
+    assert bool(torch.isfinite(got[0]).all())
+    for other in (clean, plain):
+        assert torch.equal(_bits(got[0]), _bits(other[0]))
+        assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got[1], other[1]))
+
+
+def test_picp_solve_launches_k6_alone(dev):
+    """``picp.solve`` on the card: one K6 launch and no tensor operation that
+    computes (no sanitizing ``where``, no stacked camera row, no cast); only
+    the output's allocation and views of tensors."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from visual_odometry_tpu_torch.ops import picp
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    cam, gt, world, uv, w = _solve_case(dev, 1024, False)
+    world = torch.where(w[:, None] > 0, world, float("nan"))
+    picp.solve(cam, world, uv, w, 12, kernel_threshold=1e4, tolerance=1e-12)   # warm
+    _lib.reset_launches()
+    with Ops() as ops:
+        solved, stats = picp.solve(cam, world, uv, w, 12, kernel_threshold=1e4, tolerance=1e-12)
+    assert _lib.launches["picp_solve"] == 1
+    assert set(ops.names) <= {"empty", "view", "slice", "select", "alias", "detach"}, ops.names
+    assert float((solved.world_in_camera - gt).abs().max()) < 5e-3
 
 
 def _match_case(dev, nq, nk, seed=0):
@@ -631,9 +693,11 @@ def test_segment_sum_kernel_is_run_to_run_identical(dev, r):
     assert torch.equal(first, segsum_kernel.segment_sum_small_plain(vals, seg, f, plan))
 
 
-@pytest.mark.parametrize("n", [7, 100, 1024, 1500, 8192])
+@pytest.mark.parametrize("n", [1, 7, 100, 256, 257, 1024, 1025, 1500, 4096, 8192, 8193])
 @pytest.mark.parametrize("keep_outliers", [False, True])
 def test_picp_linearize_kernel_equals_plain(dev, n, keep_outliers):
+    """K11 against its plain version, which adds in the kernel's order at the
+    kernel's geometry: the same bits."""
     cam, _, world, uv, w = _solve_case(dev, n, False)
     head, pts = (cam.camera_matrix, cam.world_in_camera, cam.params()), (world, uv, w)
     _lib.reset_launches()
@@ -641,11 +705,28 @@ def test_picp_linearize_kernel_equals_plain(dev, n, keep_outliers):
     assert _lib.launches["picp_linearize"] == 1
     hp, bp, stp = picp_kernel.linearize_plain(*head, *pts, 0.5, keep_outliers)
     scale = float(hp.abs().max())
-    print(f"K11 N={n}: max |dH| = {float((h - hp).abs().max())} of {scale}")
+    print(f"K11 N={n} geometry {picp_kernel.linearize_geometry(n)}: "
+          f"max |dH| = {float((h - hp).abs().max())} of {scale}")
     assert float((h - hp).abs().max()) <= 1e-5 * scale
     assert float((b - bp).abs().max()) <= 1e-5 * max(float(bp.abs().max()), 1.0)
     assert torch.equal(h, h.T) and int(st.num_inliers) == int(stp.num_inliers)
     assert abs(float(st.chi_inliers) - float(stp.chi_inliers)) <= 1e-5 * float(stp.chi_inliers)
+    assert torch.equal(_bits(h), _bits(hp)) and torch.equal(_bits(b), _bits(bp))
+    assert all(torch.equal(_bits(x), _bits(y)) for x, y in zip(st, stp))
+
+
+@pytest.mark.parametrize("n", [8192, 100_000])
+def test_picp_linearize_kernel_is_run_to_run_identical(dev, n):
+    """K11 folds its CTAs' partials in CTA order through per-stream scratch:
+    two launches give the same bits, and the scratch's ticket is left zero."""
+    cam, _, world, uv, w = _solve_case(dev, n, False)
+    args = (cam.camera_matrix, cam.world_in_camera, cam.params(), world, uv, w, 0.5)
+    first = picp_kernel.linearize(*args)
+    second = picp_kernel.linearize(*args)
+    for a, b in zip(first[:2] + tuple(first[2]), second[:2] + tuple(second[2])):
+        assert torch.equal(_bits(a), _bits(b))
+    ctas, _ = picp_kernel.linearize_geometry(n)
+    assert int(_lib.stream_scratch(world.device, 1 + 30 * ctas)[0]) == 0
 
 
 @pytest.mark.parametrize("pack", [False, True])

@@ -287,6 +287,67 @@ def test_transposed_warp_sum_keeps_the_block_sum_order(rng, n, nred):
     np.testing.assert_array_equal(acc.view(np.int32), ref.view(np.int32))
 
 
+@pytest.mark.parametrize("n,ctas,threads", [
+    (300, 2, 256), (1024, 4, 256), (2049, 3, 1024), (8192, 8, 1024), (9000, 8, 1024),
+    (8192, 32, 256), (100, 1, 128)])
+@pytest.mark.parametrize("nred", [30, 12])
+def test_transposed_warp_sum_keeps_the_fold_sum_order(rng, n, ctas, threads, nred):
+    """K6 and K11 spread their lanes over CTAs (csrc/picp_solve.cu,
+    csrc/picp_linearize.cu): each lane adds its points l, l + L, ... in turn,
+    each warp sums transposed, each CTA folds its warps in warp order and the
+    CTA partials are folded in CTA order. The emulation of that, in numpy,
+    equals frame_kernel._block_sum at that geometry bit for bit."""
+    rows = (rng.normal(size=(nred, n)) * 10.0 ** rng.integers(-6, 7, (nred, n))).astype(np.float32)
+    rows[:, ::9] = 0.0
+    lanes = ctas * threads
+    npad = 32 if nred > 16 else 16
+    per_lane = -(-n // lanes)
+    lane_sums = np.zeros((npad, lanes), np.float32)
+    lane_sums[:nred, :min(n, lanes)] = rows[:, :lanes]
+    for k in range(1, per_lane):
+        chunk = rows[:, k * lanes:(k + 1) * lanes]
+        lane_sums[:nred, :chunk.shape[1]] = (lane_sums[:nred, :chunk.shape[1]] + chunk)
+    total = None
+    for c in range(ctas):
+        cta = None
+        for w in range(threads // 32):
+            lo = c * threads + 32 * w
+            part = _transposed_warp_sums(lane_sums[:, lo:lo + 32].T)[:nred]
+            cta = part if cta is None else (cta + part).astype(np.float32)
+        total = cta if total is None else (total + cta).astype(np.float32)
+    ref = tfk._block_sum(torch.from_numpy(rows), ctas, threads).numpy()
+    np.testing.assert_array_equal(total.view(np.int32), ref.view(np.int32))
+
+
+@pytest.mark.parametrize("n", [1, 7, 100, 1024, 1500, 8193])
+def test_fold_sum_on_one_cta_is_block_sum(rng, n):
+    """_block_sum's default geometry is the frame kernels' one block of
+    min(1024, max(64, N in whole warps)) threads (K4, K5, K8): the same bits
+    as at that one-CTA geometry given explicitly, and as a numpy float32
+    emulation of that block's order (each thread's points in ascending order,
+    a shuffle-down tree a warp, the warps in warp order)."""
+    rows = (rng.normal(size=(30, n)) * 10.0 ** rng.integers(-6, 7, (30, n))).astype(np.float32)
+    rows[:, ::9] = 0.0
+    threads = min(1024, max(64, -(-n // 32) * 32))
+    per_thread = -(-n // threads)
+    x = np.zeros((30, per_thread * threads), np.float32)
+    x[:, :n] = rows
+    x = x.reshape(30, per_thread, threads)
+    acc = x[:, 0]
+    for i in range(1, per_thread):
+        acc = acc + x[:, i]
+    acc = acc.reshape(30, threads // 32, 32)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc[..., :o] + acc[..., o:2 * o]
+    ref = acc[..., 0, 0]
+    for w in range(1, threads // 32):
+        ref = ref + acc[:, w, 0]
+    got = tfk._block_sum(torch.from_numpy(rows))
+    np.testing.assert_array_equal(got.numpy().view(np.int32), ref.view(np.int32))
+    explicit = tfk._block_sum(torch.from_numpy(rows), 1, threads)
+    assert torch.equal(got.view(torch.int32), explicit.view(torch.int32))
+
+
 def _k1_by_tiles(app1, mask1, app2, mask2, splits=8):
     """K1's scan order in numpy (csrc/match_pairs.cu): each direction's rows
     against column splits in ascending order with a strict '<' from (inf, 0),

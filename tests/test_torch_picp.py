@@ -184,6 +184,63 @@ def test_fused_solve_plain_matches_jax_kernel(planar, n, tol):
     assert np.abs(pose.numpy() - gt).max() < 5e-3
 
 
+# Point counts on both sides of each edge of K6's and K11's launch geometries
+# (picp_kernel.solve_geometry, linearize_geometry).
+GEOMETRY_EDGES = [1, 256, 257, 1024, 1025, 2048, 2049, 8192, 8193]
+
+
+def test_launch_geometries():
+    """K6: one CTA up to 256 points, then up to 8 CTAs of 256 threads (lanes
+    loop over points above 2,048); K11: one point a lane, CTAs of up to 256."""
+    solve = [picp_kernel.solve_geometry(n) for n in GEOMETRY_EDGES]
+    assert solve == [(1, 64), (1, 256), (2, 256), (4, 256), (5, 256), (8, 256), (8, 256),
+                     (8, 256), (8, 256)]
+    lin = [picp_kernel.linearize_geometry(n) for n in GEOMETRY_EDGES]
+    assert lin == [(1, 64), (1, 256), (2, 256), (4, 256), (5, 256), (8, 256), (9, 256),
+                   (32, 256), (33, 256)]
+
+
+@pytest.mark.parametrize("planar", [False, True])
+@pytest.mark.parametrize("n", GEOMETRY_EDGES)
+def test_fused_solve_plain_matches_jax_kernel_at_geometry_edges(planar, n):
+    """K6's plain version adds in the kernel's order at its geometry
+    (frame_kernel._block_sum): held against the Pallas kernel on both sides of
+    every edge, with the tolerances of test_fused_solve_plain_matches_jax_kernel."""
+    world, uv, w, gt, mount = _scene(n, planar)
+    (pose, st), (jpose, jst) = _fused(planar, world, uv, w, mount, 12, 1e-12, 0.0)
+    np.testing.assert_allclose(pose.numpy(), np.asarray(jpose), atol=POSE_TOL)
+    _close_stats(st, jst)
+    if n >= 100:
+        assert np.abs(pose.numpy() - gt).max() < 5e-3
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_fused_solve_plain_sanitizes_dead_slots(planar):
+    """NaN and inf in dead slots (weight <= 0, here also a negative weight),
+    not sanitized by the caller, give the bits of the sanitized call: K6's
+    plain version substitutes (1, 1, 1) and (0, 0) there, as the kernel does."""
+    world, uv, w, gt, mount = _scene(1025, planar)
+    w[::13] = -1.0
+    dead = w <= 0
+    bad_world, bad_uv = world.copy(), uv.copy()
+    bad_world[dead] = np.nan
+    bad_world[dead & (np.arange(1025) % 2 == 0)] = np.inf
+    bad_uv[dead] = np.nan
+    clean_world = np.where(dead[:, None], np.float32(1.0), world)
+    clean_uv = np.where(dead[:, None], np.float32(0.0), uv)
+    cam = tsyn.default_camera()
+    head = (cam.camera_matrix, cam.world_in_camera, cam.params())
+    if planar:
+        fn, head = picp_kernel.solve_se2_fused_plain, head + (torch.from_numpy(mount),)
+    else:
+        fn = picp_kernel.solve_fused_plain
+    pose, st = fn(*head, *_t(bad_world, bad_uv, w), 12, 400.0, 1.0, 1e-12)
+    pose_c, st_c = fn(*head, *_t(clean_world, clean_uv, w), 12, 400.0, 1.0, 1e-12)
+    assert np.isfinite(pose.numpy()).all()
+    assert torch.equal(pose, pose_c)
+    assert all(torch.equal(a, b) for a, b in zip(st, st_c))
+
+
 @pytest.mark.parametrize("planar", [False, True])
 def test_fused_solve_edge_cases_match_jax_kernel(planar):
     world, uv, w, gt, mount = _scene(100, planar)
@@ -314,6 +371,20 @@ def test_linearize_plain_matches_jax_kernel(n, keep_outliers, kt):
     _close_stats(st, st2)
     if kt < 1e4:
         assert 0 < int(st.num_inliers) < int(w.sum())   # the kernel threshold split the points
+
+
+@pytest.mark.parametrize("n", [1, 256, 257, 8192, 8193])
+@pytest.mark.parametrize("keep_outliers,kt", [(False, 1e4), (True, 400.0)])
+def test_linearize_plain_matches_jax_kernel_at_geometry_edges(n, keep_outliers, kt):
+    """K11's plain version adds in the kernel's order at its geometry (one
+    point a lane, CTAs of up to 256 folded in CTA order): against
+    ``linearize_pallas(interpret=True)`` on both sides of the one-CTA edge and
+    at path G's N, with the tolerances of test_linearize_plain_matches_jax_kernel."""
+    world, meas, w, pose = _linearize_case(n)
+    (h, b, st), (jh, jb, jst), tcam = _both_linearize(world, meas, w, pose, kt, keep_outliers)
+    assert torch.equal(h, h.T) and st.num_inliers.dtype == torch.int32
+    _close_system(h, b, jh, jb)
+    _close_stats(st, jst)
 
 
 def test_linearize_restores_the_near_depth_guard():

@@ -33,7 +33,11 @@
 //    Every warp solving for itself would save one barrier but spend 32
 //    warps' issue slots on the solve's few hundred instructions;
 //  - a wide solve may split its lanes over a thread block cluster (gn_solve),
-//    so that the lane terms and warp sums of 1,024 lanes run on four SMs.
+//    so that the lane terms and warp sums of 1,024 lanes run on four SMs;
+//  - the standalone solve (K6) spreads up to 2,048 lanes over a cluster of
+//    up to 8 CTAs of up to 256 threads, more warps than red holds, and
+//    sums in two levels (gn_solve_ranked): each CTA folds its own warps in
+//    warp order, then every CTA folds the CTAs' partials in rank order.
 //
 // The expressions keep the TPU kernel's operation order term by term and the
 // library is built with --fmad=false, so kernel and plain version round
@@ -51,6 +55,7 @@ namespace cg = cooperative_groups;
 #define GN_NRED_SE2 12
 #define GN_MAX_WARPS 32  // of a solve, over all the CTAs of a cluster
 #define GN_MAX_CLUSTER 4
+#define GN_MAX_RANKS 8  // CTAs of a ranked solve's cluster (gn_solve_ranked, K6)
 
 struct GNControl {
   int it;
@@ -519,5 +524,82 @@ __device__ __forceinline__ void gn_solve(GNShared* sh, const GNParams& g, int nu
     GN_PHASE(4, t4, t5);
     GN_PHASE(5, t5, t6);
     GN_PHASE(6, 0, 1);
+  }
+}
+
+// The GN loop of the standalone solve (picp_solve.cu, K6), whose lanes may
+// span a cluster of up to GN_MAX_RANKS CTAs (K6: of up to 256 threads each,
+// up to 64 warps, more than red holds). Its sum has two levels, each in one
+// fixed order: warp 0 of every CTA folds its own CTA's warp partials in warp
+// order (lane q: term q) and stores that CTA partial into every rank's
+// rank_red (distributed shared memory); after the cluster barrier every CTA
+// folds the CTAs' partials in rank order and solves, so each ends the round
+// with the same pose bits. On one CTA (cluster == 1) the CTA partial is the
+// sum, the order of gn_solve on one CTA. A round costs three barriers on a
+// cluster: the CTA's before its fold, the cluster's, and the CTA's after the
+// solve. rank_red holds 2 x GN_MAX_RANKS x NRED floats, by round parity: a
+// CTA may store round r + 1's partial while another still folds round r's,
+// never round r + 2's before that one has passed round r + 1's barrier. The
+// caller calls it after a barrier (the cluster's, on a cluster) that follows
+// gn_init; lane_terms is gn_solve's.
+template <bool PLANAR, typename LaneTerms>
+__device__ __forceinline__ void gn_solve_ranked(GNShared* sh, float* rank_red, const GNParams& g,
+                                                int num_iterations, int min_iterations,
+                                                LaneTerms lane_terms, int cluster) {
+  constexpr int NRED = PLANAR ? GN_NRED_SE2 : GN_NRED_SE3;
+  constexpr int NPAD = PLANAR ? 16 : 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wpc = blockDim.x >> 5;
+  const int rank = cluster > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  while (true) {
+    const int it = sh->ctl.it;
+    if (!(it < num_iterations && (sh->ctl.active > 0.5f || it < min_iterations))) break;
+    float part[NPAD];
+    lane_terms(sh->pose, part);
+#pragma unroll
+    for (int q = NRED; q < NPAD; ++q) part[q] = 0.0f;
+    const float v = warp_sum_terms<NPAD>(part);
+    if (lane < NRED) sh->red[warp * NRED + lane] = v;
+    __syncthreads();
+    float* rr = rank_red + (it & 1) * (GN_MAX_RANKS * NRED);
+    if (warp == 0 && lane < NRED) {
+      float r[GN_MAX_WARPS];
+#pragma unroll
+      for (int w = 0; w < GN_MAX_WARPS; ++w) r[w] = w < wpc ? sh->red[w * NRED + lane] : 0.0f;
+      float acc = r[0];
+#pragma unroll
+      for (int w = 1; w < GN_MAX_WARPS; ++w)
+        if (w < wpc) acc = acc + r[w];
+      if (cluster > 1) {
+        for (int q = 0; q < cluster; ++q)
+          cg::this_cluster().map_shared_rank(rr, q)[rank * NRED + lane] = acc;
+      } else {
+        sh->sums[lane] = acc;
+      }
+    }
+    if (cluster > 1) {
+      cg::this_cluster().sync();
+      if (warp == 0 && lane < NRED) {
+        float r[GN_MAX_RANKS];
+#pragma unroll
+        for (int q = 0; q < GN_MAX_RANKS; ++q) r[q] = q < cluster ? rr[q * NRED + lane] : 0.0f;
+        float acc = r[0];
+#pragma unroll
+        for (int q = 1; q < GN_MAX_RANKS; ++q)
+          if (q < cluster) acc = acc + r[q];
+        sh->sums[lane] = acc;
+      }
+    }
+    if (warp == 0) {
+      __syncwarp();
+      GNControl ctl = sh->ctl;
+      if (PLANAR) {
+        gn_update_se2(sh->sums, g, sh->pose, &ctl, lane);
+      } else {
+        gn_update(sh->sums, g, sh->pose, &ctl, lane);
+      }
+      if (lane == 0) sh->ctl = ctl;
+    }
+    __syncthreads();
   }
 }

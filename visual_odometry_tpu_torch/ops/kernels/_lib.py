@@ -157,20 +157,21 @@ def build() -> tuple:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "vo_match_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vo_join_candidates": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vo_gather_rows": [_P] * 3 + [_I] * 4 + [_L, _L, _P],
     "vo_track_frames": [_P] * 12 + [_I] * 5 + [_P],
     "vo_track_frames_planar": [_P] * 12 + [_I] * 5 + [_P],
-    "vo_picp_solve": [_P] * 6 + [_I] * 3 + [_P],
-    "vo_picp_solve_se2": [_P] * 6 + [_I] * 3 + [_P],
+    "vo_picp_solve": [_P] * 10 + [_I] * 5 + [_F] * 5 + [_P],
+    "vo_picp_solve_se2": [_P] * 11 + [_I] * 5 + [_F] * 5 + [_P],
     "vo_best_match": [_P] * 9 + [_I] * 5 + [_P],
     "vo_track_frames_batched": [_P] * 13 + [_I] * 6 + [_P],
     "vo_track_frames_batched_planar": [_P] * 13 + [_I] * 6 + [_P],
     "vo_segment_sum": [_P, _P, _P, _P, _I, _I, _P],
     "vo_take_table": [_P, _L, _L, _P, _P, _L, _I, _I, _I, _P],
-    "vo_picp_linearize": [_P] * 5 + [_I, _P],
+    "vo_picp_linearize": [_P] * 12 + [_I] * 3 + [_F, _F, _P],
 }
 
 _lib = None
@@ -223,3 +224,24 @@ def launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
         msg = _lib.vo_error_string(code).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {code} ({msg})")
     launches[kernel] += 1
+
+
+# Per (device, stream) scratch of the kernels that fold across CTAs with a
+# ticket counter (K11): int32 words, zeroed once when made; such a kernel
+# finds its counter (word 0) zero and leaves it zero, and launches on one
+# stream never overlap, so they may share the rest.
+_scratch: dict = {}
+
+
+def stream_scratch(device: torch.device, words: int) -> torch.Tensor:
+    """A zeroed-at-creation int32 buffer of at least ``words`` entries owned by
+    ``device``'s current stream."""
+    if _lib is None:
+        library()
+    index = _current_device() if device.index is None else device.index
+    key = (index, _raw_stream(index))
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(max(words, 1024), dtype=torch.int32, device=torch.device("cuda", index))
+        _scratch[key] = buf
+    return buf

@@ -162,11 +162,7 @@ def pack_params(camera_matrix, cam_params, x_init, kernel_threshold, damping, to
         dtype=torch.float32,
     )]
     if planar:
-        if cam_in_robot is None:
-            mount = torch.eye(4, dtype=torch.float32)
-        else:
-            mount = torch.as_tensor(cam_in_robot, dtype=torch.float32).cpu()
-        host += [mount[:3, :4].reshape(12), se3.inverse(mount)[:3, :4].reshape(12)]
+        host.append(mount_rows(cam_in_robot))
     host = torch.cat(host).to(dev)
     k = camera_matrix.to(torch.float32)
     k_inv = torch.linalg.inv(k) if k_inverse else torch.zeros_like(k)
@@ -174,6 +170,16 @@ def pack_params(camera_matrix, cam_params, x_init, kernel_threshold, damping, to
         cam_params.to(torch.float32).reshape(4), host[:6], k.reshape(9), k_inv.reshape(9),
         x_init[:3, :4].to(torch.float32).reshape(12), host[6:],
     ]).contiguous()
+
+
+def mount_rows(cam_in_robot) -> torch.Tensor:
+    """The planar loops' camera mount [R|t] (12) and its rigid inverse (12),
+    float32 on the host; ``cam_in_robot`` None is the identity mount."""
+    if cam_in_robot is None:
+        mount = torch.eye(4, dtype=torch.float32)
+    else:
+        mount = torch.as_tensor(cam_in_robot, dtype=torch.float32).cpu()
+    return torch.cat([mount[:3, :4].reshape(12), se3.inverse(mount)[:3, :4].reshape(12)])
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -288,29 +294,37 @@ def _gn_update_se2(sums, pose, par, device):
     return new_pose, active, (new_chi_in, new_chi_out, new_n_in)
 
 
-def _block_sum(rows: torch.Tensor) -> torch.Tensor:
+def _block_sum(rows: torch.Tensor, ctas: int = 1, threads: int = 0) -> torch.Tensor:
     """Sum (R, N) lane rows -> (R,) on the host, in the CUDA kernels' order
-    (csrc/gn_loop.cuh). The block has T = min(1024, N rounded up to whole
-    warps, at least 64) threads; thread j first adds the terms of points j,
-    j + T, j + 2T, ... in ascending order (only the standalone solves have
-    N > T), then a shuffle-down tree inside each warp (offsets 16, 8, 4, 2,
-    1), then the warps' partials added in warp order. The same order makes the
-    plain versions track the kernels bit for bit instead of drifting apart
-    through the ill-conditioned monocular triangulation chain."""
+    (csrc/gn_loop.cuh). The lanes are ``ctas`` CTAs of ``threads`` threads;
+    by default one CTA of min(1024, N rounded up to whole warps, at least 64)
+    threads, the frame kernels' block (K4, K5, K8). Of L = ctas x threads
+    lanes, lane l (CTA l // threads) first adds the terms of points l, l + L,
+    l + 2L, ... in ascending order (only the standalone solves have N > L),
+    then a shuffle-down tree inside each warp (offsets 16, 8, 4, 2, 1), then
+    each CTA adds its warps' partials in warp order, then the CTAs' partials
+    are added in CTA order (K6 csrc/picp_solve.cu, K11
+    csrc/picp_linearize.cu). The same order makes the plain versions track
+    the kernels bit for bit instead of drifting apart through the
+    ill-conditioned monocular triangulation chain."""
     r, n = rows.shape
-    lanes = min(1024, max(64, -(-n // 32) * 32))
-    per_thread = -(-n // lanes)
-    x = torch.nn.functional.pad(rows, (0, per_thread * lanes - n)).reshape(r, per_thread, lanes)
+    threads = threads or min(1024, max(64, -(-n // 32) * 32))
+    lanes = ctas * threads
+    per_lane = max(1, -(-n // lanes))
+    x = torch.nn.functional.pad(rows, (0, per_lane * lanes - n)).reshape(r, per_lane, lanes)
     acc = x[:, 0]
-    for i in range(1, per_thread):
+    for i in range(1, per_lane):
         acc = acc + x[:, i]
     x = acc.reshape(r, lanes // 32, 32)
     for o in (16, 8, 4, 2, 1):
         x = x[..., :o] + x[..., o:2 * o]
-    parts = x[..., 0].cpu().unbind(1)
-    acc = parts[0]
-    for part in parts[1:]:
-        acc = acc + part
+    warps = x[..., 0].cpu().reshape(r, ctas, threads // 32)
+    cta = warps[..., 0]
+    for w in range(1, threads // 32):
+        cta = cta + warps[..., w]
+    acc = cta[:, 0]
+    for c in range(1, ctas):
+        acc = acc + cta[:, c]
     return acc
 
 
@@ -378,18 +392,19 @@ def _gn_lane_rows(par, pose, wx, wy, wz, mx, my, wgt, planar: bool = False) -> t
 
 
 def _gn_loop_plain(num_iterations, min_iterations, par, pose0, wx, wy, wz, mx, my, wgt,
-                   planar: bool = False, rounds_out=None):
+                   planar: bool = False, rounds_out=None, block_sum=_block_sum):
     """The GN early-exit loop: lane sums on the lanes' device, solve on host.
     ``planar`` swaps the 6-DoF Jacobian and update for the conjugated SE(2)
     ones. The number of rounds run is appended to the list ``rounds_out``, if
-    given (the kernels run the same number: they agree bit for bit)."""
+    given (the kernels run the same number: they agree bit for bit).
+    ``block_sum`` adds a round's lane rows in its kernel's order."""
     damping, tol, min_inl = par[6], par[7], par[9]
     pose = pose0
     zero = torch.zeros((), dtype=torch.float32)
     stats = (zero, zero, zero)
     it, active = 0, True
     while it < num_iterations and (active or it < min_iterations):
-        sums = _block_sum(_gn_lane_rows(par, pose, wx, wy, wz, mx, my, wgt, planar))
+        sums = block_sum(_gn_lane_rows(par, pose, wx, wy, wz, mx, my, wgt, planar))
         if planar:
             pose, active, stats = _gn_update_se2(sums, pose, par, wx.device)
         else:

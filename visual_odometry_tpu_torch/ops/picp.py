@@ -157,23 +157,24 @@ def solve(camera: Camera, world_points, measured_points, weights, num_iterations
     launches kernel K6 for CUDA tensors and runs the plain loop for CPU
     tensors, ``cuda`` requires the kernel, ``torch`` is the plain loop."""
     # Dead correspondence slots may carry garbage (failed triangulations can be
-    # NaN/inf); 0 * NaN = NaN would poison the H/b sums on either route, so
-    # masked-out inputs are sanitized once up front.
-    live = weights > 0.0
-    world_points = torch.where(live[:, None], world_points, torch.ones_like(world_points))
-    measured_points = torch.where(live[:, None], measured_points,
-                                  torch.zeros_like(measured_points))
-
+    # NaN/inf); 0 * NaN = NaN would poison the H/b sums on either route. K6
+    # sanitizes them in the kernel; the plain loop here, once up front.
     if _lib.use_kernel(backend, world_points):
         from .kernels.picp_kernel import solve_fused
 
         pose, stats = solve_fused(
-            camera.camera_matrix, camera.world_in_camera, camera.params(), world_points,
+            camera.camera_matrix, camera.world_in_camera,
+            (camera.z_near, camera.z_far, camera.cols, camera.rows), world_points,
             measured_points, weights, num_iterations, kernel_threshold, damping,
             tolerance if tolerance > 0.0 else -1.0, keep_outliers=keep_outliers,
             min_num_inliers=min_num_inliers, min_iterations=min_iterations, backend="cuda",
         )
         return with_pose(camera, pose), stats
+
+    live = weights > 0.0
+    world_points = torch.where(live[:, None], world_points, torch.ones_like(world_points))
+    measured_points = torch.where(live[:, None], measured_points,
+                                  torch.zeros_like(measured_points))
 
     def round_fn(cam):
         return one_round(cam, world_points, measured_points, weights, kernel_threshold, damping,
