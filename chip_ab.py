@@ -40,8 +40,10 @@ its first 128 frames, whose GN rounds the plain version counts once, for
 x 126 frames), K2 on path B (``k2_path_b``) and K7 at path C's shape
 (``k7_fast``, ``k7_exact``: chip_smoke.match_problem, 1,024 queries x 2^20
 rows); ``ms`` is the median of ``--reps`` CUDA-event times (4x as many for
-K1, K2 and K7). Each output's SHA-256 shows whether the two checkouts agree
-bit for bit. Any checkout of the port since its serving slice runs it.
+K1, K2 and K7). Then, through each checkout's own pipeline, path B's
+``run_sequence`` (its bootstrap included; trajectory and map) and path E's
+``run_sequences_batched`` (trajectories, maps, per-frame outputs). Each
+output's SHA-256 shows whether the two checkouts agree bit for bit. Any checkout of the port since its serving slice runs it.
 
 ``phases`` (no OTHER_ROOT): K4's round broken into phases on path B. It
 builds csrc/track_frames.cu six times into build/vo_torch_kernels_diag/: as
@@ -297,7 +299,11 @@ def _kernels(reps: int) -> dict:
     import torch
 
     import chip_smoke   # the worker's own root is first on sys.path
+    from visual_odometry_tpu_torch.models import pipeline
     from visual_odometry_tpu_torch.ops.kernels import frame_kernel, matcher_kernel
+    from visual_odometry_tpu_torch.parallel import multiseq
+    from visual_odometry_tpu_torch.utils import synthetic
+    from visual_odometry_tpu_torch.utils.config import DEFAULT_CONFIG, VOConfig
 
     inp = _load_kernel_inputs(torch.device("cuda"))
     out = {}
@@ -321,6 +327,16 @@ def _kernels(reps: int) -> dict:
     for key, fast in (("k7_fast", True), ("k7_exact", False)):
         out[key] = {"ms": _ms(lambda: matcher_kernel.best_match_cuda(*inp["k7"], fast), 4 * reps),
                     "sha": _sha(matcher_kernel.best_match_cuda(*inp["k7"], fast))}
+    # End to end through each checkout's own pipeline: path B's run_sequence
+    # (bootstrap included) and path E's serving batch.
+    device = torch.device("cuda")
+    camera = synthetic.deep_camera(device=device)
+    traj, map_state, _ = pipeline.run_sequence(camera, VOConfig(n_slots=1024, map_capacity=2048),
+                                               *chip_smoke.path_b_inputs(512, 1024, device))
+    out["path_b_run_sequence"] = {"sha": _sha((traj, *map_state))}
+    seqs = chip_smoke.serving_inputs(64, 128, 128, DEFAULT_CONFIG, device)
+    traj, maps, outs = multiseq.run_sequences_batched(camera, DEFAULT_CONFIG, *seqs)
+    out["path_e_serving"] = {"sha": _sha((traj, *maps, *outs))}
     return out
 
 

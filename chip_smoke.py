@@ -26,14 +26,18 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      index_add_ and index_select (K9 over one plan of the frame ids, two
      launches bit for bit alike and equal to the plain version; K10 in the
      layouts a step uses, the table read in place through its strides); one
-     sparse-BA step at 1,536 poses on the card against the CPU's; K3 and K10 rows and their library calls
+     sparse-BA step at 1,536 poses on the card against the CPU's; K8 also at
+     path H's shapes (4 chunks of path B's sequence, 142 tracked frames x 1,024
+     slots, a cluster of 4 CTAs a chunk), each chunk bit for bit against K4
+     launched alone; K3 and K10 rows and their library calls
      carry device_ms (profiler) and host_ms (host clock, no sync) beside
      ms; K6 and K11 rows carry them too, with their launch geometry, GN
      rounds and device us a round (K6), and the launch floor (a one-float
      fill's times) beside the bound;
      K11 linearization at N = 1024 and 8192, twice bit for bit alike;
   4. path A: the reference-format applications — generate_dataset (40 frames,
-     400 landmarks), apps.run_vo_complete, run_vo_se2, run_vo_da_known and
+     400 landmarks), apps.run_vo_complete (also with num_chunks=2), run_vo_se2,
+     run_vo_da_known and
      run_relocalize (both matcher precisions) on cuda, apps.run_evaluation —
      held to the accuracy bounds of tests/test_dataset_gen.py, the planar
      subgroup bound and the relocalization bounds of tests/test_relocalize.py;
@@ -47,7 +51,14 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
   8. resume: path B's inputs split at frame 256 through continue_sequence with
      a checkpoint round trip, held against one shot;
   9. step form: the first 18 frames of path B through scan_backend="step"
-     (one K6 launch a tracked frame), held against the fused launch.
+     (one K6 launch a tracked frame), held against the fused launch;
+  9b. path H: chunked tracking, parallel.posegraph.run_sequence_chunked on
+     path B's inputs as 4 chunks (overlap 10, the default slack; K1 three
+     times, one K2, three K3, one K8 over the chunks, no K4), held bit for bit
+     against its loop form (the same plan and stitch, K4 once a chunk) and
+     against path B's
+     trajectory (mean |e_theta| < 1e-4, translation ratios within 5% of their
+     median), and its frames/s beside path B's.
   10. path E: serving, parallel.multiseq.run_sequences_batched over 64
      sequences x 128 frames x 128 slots (landmark fields 100-163, none left
      out; K1-K3 once a stage over the flattened batch, K8 once), each sequence
@@ -61,7 +72,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
   12. path G: K11 through its public entry point at N = 8192 beside
      ops.picp.linearize.
 ``python3 chip_smoke.py --stages`` instead runs the entry points of paths B, C,
-D and E and one sparse-BA step of path F(2) in each layout inside ``profiling.stage_times`` and prints the time of each step the
+D, E and H and one sparse-BA step of path F(2) in each layout inside
+``profiling.stage_times`` and prints the time of each step the
 pipeline itself marks (ended by a sync, median of 5), then each path's kernel
 times and device-busy share under torch.profiler, each stage's host time by
 PyTorch operator and CUDA runtime call, and what a stage sample right after
@@ -118,6 +130,12 @@ K4_PLAIN_FRAMES, K5_PLAIN_FRAMES = 256, 128
 K9_RTOL, K9_ATOL = 2e-5, 1e-4    # K9 against index_add_, another order (tests/test_pallas_kernels.py:266)
 K11_RTOL = 1e-5                  # of the system's largest entry (bitwise expected)
 SERVE_B, SERVE_FRAMES, SERVE_SLOTS = 64, 128, 128
+CHUNKS, CHUNK_OVERLAP = 4, 10    # path H: path B's sequence as 4 chunks
+# Path H's launches: K1 for the bootstrap scores, the chunks' bootstrap pairs and
+# their flattened pairs; one K2; three K3; one K8 over the chunks; no K4.
+PATH_H = {"match_pairs": 3, "join_candidates": 1, "gather_rows": K3_PATH_LAUNCHES,
+          "track_frames_batched": 1, "track_frames": 0}
+CHUNK_RATIO_TOL = 0.05   # each frame's translation ratio to serial path B, about their median
 BA_POSES, BA_LANDMARKS, BA_STEPS, BA_CG = 512, 100_000, 3, 64
 MOUNT_V = (0.05, -0.1, 0.02, 0.01, -0.02, 0.015)   # a non-identity camera mount, Euler chart
 
@@ -722,6 +740,29 @@ def require_tracked(outs, traj, slots: int, label: str):
     require(not lost, f"{label}: fields that lost inliers [field, least of {slots}]: {lost}")
 
 
+def k8_args(rows):
+    """K8's arguments for the sequences whose K4/K5 arguments (``kernel_inputs``'
+    ``track_frames``) are ``rows``: one shared parameter row, the start poses stacked."""
+    import torch
+
+    from visual_odometry_tpu_torch.ops.kernels import frame_kernel
+
+    stack = lambda k: torch.stack([a[k] for a in rows]).contiguous()   # noqa: E731
+    cand = frame_kernel.JoinCandidates(
+        *(torch.stack([a[3][q] for a in rows]).contiguous() for q in range(3)))
+    pose0 = torch.stack([a[0][28:40] for a in rows]).contiguous()
+    return ((rows[0][0], pose0, stack(1), stack(2), cand, stack(4), stack(5), stack(6))
+            + rows[0][7:])
+
+
+def k8_reckoning(args, rounds_per_frame: float, planar: bool):
+    """(bytes K8 must move, float operations) at ``rounds_per_frame`` GN rounds."""
+    n, f, depth, s = args[4].idx.shape
+    moved = nbytes(args[0], args[1], args[2], args[3], args[4].idx, args[4].ok, args[5], args[6],
+                   args[7]) + n * f * (64 + s * 13 + 16)
+    return moved, n * f * s * (rounds_per_frame * ROUND_FLOPS[planar] + FRAME_FLOPS)
+
+
 def compare_serving(camera, config, seqs, device, table, rounds_frames: int = 14, reps: int = 3):
     """K8 (SE(3), or planar for a planar config): one launch over all the
     sequences against K4/K5 launched alone on each (every output of every
@@ -736,16 +777,7 @@ def compare_serving(camera, config, seqs, device, table, rounds_frames: int = 14
     count = seqs[0].shape[0]
     singles = [kernel_inputs(camera, config, *(x[i] for x in seqs))["track_frames"]
                for i in range(count)]
-
-    def batched(rows):
-        stack = lambda k: torch.stack([a[k] for a in rows]).contiguous()   # noqa: E731
-        cand = frame_kernel.JoinCandidates(
-            *(torch.stack([a[3][q] for a in rows]).contiguous() for q in range(3)))
-        pose0 = torch.stack([a[0][28:40] for a in rows]).contiguous()
-        return (rows[0][0], pose0, stack(1), stack(2), cand, stack(4), stack(5), stack(6),
-                config.gn_iterations, config.gn_min_iterations, planar)
-
-    args = batched(singles)
+    args = k8_args(singles)
     out = frame_kernel.track_frames_batched_cuda(*args)
     require(all(bool(torch.isfinite(x.float()).all()) for x in out), f"{name}: non-finite output")
     least = out[3][..., 2].min(dim=1).values
@@ -759,7 +791,7 @@ def compare_serving(camera, config, seqs, device, table, rounds_frames: int = 14
     require(err_single == 0.0,
             f"{name}: a sequence differs from its single launch by {err_single}")
 
-    first = batched(singles[:1])
+    first = k8_args(singles[:1])
     ref, plain_ms = timed_call(lambda: frame_kernel.track_frames_batched_plain(*first), device)
     err = float((out[0][:1] - ref[0]).abs().max())
     tol = GN_POSE_TOL if planar else K4_POSE_TOL
@@ -772,16 +804,158 @@ def compare_serving(camera, config, seqs, device, table, rounds_frames: int = 14
     frame_kernel.track_frames_plain(*head_frames(singles[0], rounds_frames), rounds_out=rounds)
     rounds_per_frame = sum(rounds) / len(rounds)
     n, f, depth, s = args[4].idx.shape
-    moved = nbytes(args[0], args[1], args[2], args[3], args[4].idx, args[4].ok, args[5], args[6],
-                   args[7]) + n * f * (64 + s * 13 + 16)
-    ops = n * f * s * (rounds_per_frame * ROUND_FLOPS[planar] + FRAME_FLOPS)
-    bound_ms, bound_by = bound(moved, ops)
+    bound_ms, bound_by = bound(*k8_reckoning(args, rounds_per_frame, planar))
     table[name] = dict(
         max_abs_err=err_single, max_abs_err_vs_plain=err, ms=ms, plain_ms=plain_ms,
         plain_shape=[1, f, s], bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None, sequences=n, frames=f, slots=s, single_launch_ms=single_ms,
         ms_over_single_launch=ms / single_ms,
         gn_rounds_per_frame_first_sequence_head=rounds_per_frame)
+
+
+def chunk_plan(camera, config, pts, apps, masks):
+    """Path H's plan as run_sequence_chunked makes it: (starts, chunk length)."""
+    import torch
+
+    from visual_odometry_tpu_torch.parallel import posegraph
+
+    ids = torch.full(masks.shape, -1, dtype=torch.int32, device=masks.device)
+    starts, length, _ = posegraph._plan(config, pts, apps, masks, ids, False, CHUNKS,
+                                        CHUNK_OVERLAP, None)
+    return starts, length
+
+
+def chunked_loop_form(camera, config, pts, apps, masks, plan):
+    """run_sequence_chunked's work on ``plan`` with the chunks tracked as a
+    loop of pipeline._track (K4 once a chunk): (trajectory, map, diagnostics)."""
+    import torch
+
+    from visual_odometry_tpu_torch.parallel import posegraph
+
+    ids = torch.full(masks.shape, -1, dtype=torch.int32, device=masks.device)
+    chunked = [posegraph._chunk(x, *plan) for x in (pts, apps, masks, ids)]
+    return posegraph._track_and_stitch(camera, config, *chunked, *plan, pts.shape[0], False,
+                                       batched=False)
+
+
+def compare_chunked_k8(camera, config, seq, plan, device, table, rounds_frames: int = 14,
+                       reps: int = 10):
+    """K8 at path H's shapes: the chunks of path B's sequence (4 x 142 tracked
+    frames x 1,024 slots, a cluster of 4 CTAs a chunk) in one launch, each
+    chunk's outputs bit for bit against K4 launched alone on it, and every
+    chunk's first ``rounds_frames`` frames against the plain version of K8
+    (the frame loop is causal: those frames' outputs need no later frame);
+    its time beside each chunk's K4 alone, for the chain reckoning (frames x
+    GN rounds a frame x a round's time, the slowest chunk's)."""
+    import torch
+
+    from visual_odometry_tpu_torch.ops.kernels import frame_kernel
+    from visual_odometry_tpu_torch.parallel import posegraph
+
+    chunks = [posegraph._chunk(x, *plan) for x in seq]
+    singles = [kernel_inputs(camera, config, *(x[i] for x in chunks))["track_frames"]
+               for i in range(len(plan[0]))]
+    args = k8_args(singles)
+    out = frame_kernel.track_frames_batched_cuda(*args)
+    require(all(bool(torch.isfinite(x.float()).all()) for x in out),
+            "K8 at path H's shapes: non-finite output")
+    for i, a in enumerate(singles):
+        alone = frame_kernel.track_frames_cuda(*a)
+        require(same_bits(*((o[i].float(), x.float()) for o, x in zip(out, alone))),
+                f"K8 at path H's shapes: chunk {i} differs from K4 launched alone")
+    # The plain version over every chunk's head, with its GN rounds a frame.
+    rounds = []
+    ref, plain_ms = timed_call(lambda: frame_kernel.track_frames_batched_plain(
+        *k8_args([head_frames(a, rounds_frames) for a in singles]), rounds_out=rounds), device)
+    err = float((out[0][:, :rounds_frames] - ref[0]).abs().max())
+    require(err <= K4_POSE_TOL,
+            f"K8 at path H's shapes: poses differ from the plain version by {err} > {K4_POSE_TOL}")
+    require(torch.equal(out[2][:, :rounds_frames], ref[2]),
+            "K8 at path H's shapes: triangulation validity differs from the plain version")
+    row = launch_times(lambda: frame_kernel.track_frames_batched_cuda(*args), device, reps)
+    n, f, _, s = args[4].idx.shape
+    # Each chunk alone: K4's time over all its frames.
+    chunks = []
+    for a, r in zip(singles, rounds):
+        k4_ms = time_ms(lambda: frame_kernel.track_frames_cuda(*a), device, 3)
+        pose0 = a[0][28:40]   # the bootstrap pose's (3, 4) rows: its gauge is |t|
+        chunks.append(dict(k4_alone_ms=k4_ms, gn_rounds_per_frame_head=sum(r) / len(r),
+                           us_per_gn_round=1e3 * k4_ms * len(r) / (f * sum(r)),
+                           bootstrap_t_norm=float(pose0[3::4].norm())))
+    rounds_per_frame = statistics.mean(c["gn_rounds_per_frame_head"] for c in chunks)
+    bound_ms, bound_by = bound(*k8_reckoning(args, rounds_per_frame, False))
+    table["track_frames_batched"]["path_h"] = dict(
+        row, max_abs_err_vs_k4_alone=0.0, max_abs_err_vs_plain=err, plain_ms=plain_ms,
+        plain_shape=[n, rounds_frames, s], sequences=n, frames=f, slots=s, bound_ms=bound_ms,
+        bound_by=bound_by, gn_rounds_per_frame_head_mean=rounds_per_frame, chunks=chunks,
+        over_slowest_k4_alone=row["ms"] / max(c["k4_alone_ms"] for c in chunks))
+
+
+def run_path_h(camera, config, pts, apps, masks, device, serial_traj, serial_fps,
+               require_launches: bool = True, reps: int = 3):
+    """Chunked tracking at full width: path B's sequence through
+    posegraph.run_sequence_chunked (4 chunks, overlap 10, the default slack),
+    held bit for bit against its loop form (the same plan and stitch, K4 once
+    a chunk), with every boundary observed by 8+ scale samples, and against
+    serial path B's trajectory: mean |e_theta| below 1e-4 and every frame's
+    translation ratio within 5% of their median."""
+    import torch
+
+    from visual_odometry_tpu_torch.models.refinement import absolute_from_relative
+    from visual_odometry_tpu_torch.ops.kernels import _lib
+    from visual_odometry_tpu_torch.parallel import posegraph
+    from visual_odometry_tpu_torch.utils.evaluation import relative_errors
+
+    def chunked():
+        return posegraph.run_sequence_chunked(camera, config, pts, apps, masks,
+                                              num_chunks=CHUNKS, overlap=CHUNK_OVERLAP)
+
+    plan = starts, length = chunk_plan(camera, config, pts, apps, masks)
+    _lib.reset_launches()
+    traj, map_state, diags = chunked()
+    sync(device)
+    launches = read_launches(tuple(k for k, v in PATH_H.items() if v), "path H", require_launches)
+    if require_launches:
+        require(all(launches[k] == v for k, v in PATH_H.items()),
+                f"path H: launches must be {PATH_H}: {launches}")
+    loop = chunked_loop_form(camera, config, pts, apps, masks, plan)
+    pairs = zip((traj, *map_state, *diags), (loop[0], *loop[1], *loop[2]))
+    require(all(same_bits((a, b)) if a.is_floating_point() else torch.equal(a, b)
+                for a, b in pairs), "path H: the batched chunks differ from the loop form")
+    require(diags.scales.shape == (CHUNKS,), f"path H: {diags.scales.shape[0]} chunks")
+    obs = diags.num_ratio_obs.tolist()
+    require(min(obs) >= 8, f"path H: a boundary has fewer than 8 scale samples: {obs}")
+    require(bool(torch.isfinite(traj).all()), "path H: non-finite poses")
+
+    # Against serial path B, in camera poses in frame-0 coordinates.
+    def poses(t):
+        return np.linalg.inv(absolute_from_relative(t.cpu().numpy()).astype(np.float64))
+
+    orient, ratio = relative_errors(poses(traj), poses(serial_traj))
+    e_theta = float(np.abs(orient).mean())
+    spread = float(np.abs(ratio / np.median(ratio) - 1.0).max())
+    require(e_theta < 1e-4, f"path H: mean |e_theta| against path B {e_theta} >= 1e-4")
+    require(spread <= CHUNK_RATIO_TOL,
+            f"path H: a translation ratio to path B is {spread} off their median")
+
+    seconds = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        chunked()
+        sync(device)
+        seconds.append(time.perf_counter() - t0)
+    fps = pts.shape[0] / statistics.median(seconds)
+    print(json.dumps({"path_h": {
+        "frames": pts.shape[0], "slots": pts.shape[1], "chunks": CHUNKS, "starts": list(starts),
+        "chunk_len": length, "scales": diags.scales.tolist(),
+        "rot_consistency": diags.rot_consistency.tolist(), "num_ratio_obs": obs,
+        "e_theta_mean_vs_path_b": e_theta, "ratio_median_vs_path_b": float(np.median(ratio)),
+        "ratio_spread_vs_path_b": spread, "map_landmarks": int(map_state.count),
+        "seconds": seconds, "frames_per_s": fps, "path_b_frames_per_s": serial_fps,
+        "launches": launches}}))
+    print(f"path H frames/s: {fps:.1f} chunked ({CHUNKS} chunks of {length} from {list(starts)}), "
+          f"path B {serial_fps:.1f} serial (median of {reps})")
+    return launches
 
 
 def corridor(device):
@@ -1016,7 +1190,8 @@ def run_path_a(work_dir: str, device, require_launches: bool = True):
     from visual_odometry_tpu_torch.utils.config import DEFAULT_CONFIG
 
     data = os.path.join(work_dir, "data")
-    outs = {n: os.path.join(work_dir, n) for n in ("complete", "se2", "daknown", "reloc")}
+    outs = {n: os.path.join(work_dir, n)
+            for n in ("complete", "chunked", "se2", "daknown", "reloc")}
     dataset_gen.generate_dataset(data, num_frames=40, num_landmarks=400, seed=1)
     report = {}
     _lib.reset_launches()
@@ -1024,6 +1199,11 @@ def run_path_a(work_dir: str, device, require_launches: bool = True):
     sync(device)
     read_launches(MAIN_PATH, "path A vo_complete", require_launches)
     report["vo_complete"] = check_accuracy(apps.run_evaluation(data, outs["complete"]), "path A")
+    diags = apps.run_vo_complete(data, outs["chunked"], DEFAULT_CONFIG.replace(num_chunks=2),
+                                 device=device, verbose=True)[2]
+    report["vo_complete_chunked"] = check_accuracy(apps.run_evaluation(data, outs["chunked"]),
+                                                   "path A chunked")
+    report["vo_complete_chunked"]["scales"] = diags.scales.tolist()
 
     traj_se2 = apps.run_vo_se2(data, outs["se2"], device=device, verbose=True)[0]
     report["vo_se2"] = check_accuracy(apps.run_evaluation(data, outs["se2"]), "path A vo_se2")
@@ -1088,7 +1268,7 @@ def run_path_b(camera, config, pts, apps, masks, device, require_launches: bool 
                                  "inliers_mean": float(outs.num_inliers.float().mean()),
                                  "seconds": seconds, "launches": launches}}))
     print(f"path B frames/s: {fps:.1f} ({frames} frames x {pts.shape[1]} slots, median of {reps})")
-    return launches, err, fps
+    return launches, traj, fps
 
 
 def path_c_inputs(device, map_rows: int, queries: int):
@@ -1599,7 +1779,7 @@ def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from visual_odometry_tpu_torch.models import pipeline
-    from visual_odometry_tpu_torch.parallel import multiseq, sparse_ba
+    from visual_odometry_tpu_torch.parallel import multiseq, posegraph, sparse_ba
     from visual_odometry_tpu_torch.utils import profiling, synthetic
     from visual_odometry_tpu_torch.utils.config import DEFAULT_CONFIG, VOConfig
 
@@ -1654,6 +1834,9 @@ def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1
     step = config.replace(scan_backend="step")
     head = tuple(x[:34] for x in seq_b)
     report["path_b_step_34_frames"] = measured(lambda: pipeline.run_sequence(camera, step, *head))
+    # Path H: path B's sequence as 4 chunks, one K8 launch over them.
+    report["path_h"] = measured(lambda: posegraph.run_sequence_chunked(
+        camera, config, *seq_b, num_chunks=CHUNKS, overlap=CHUNK_OVERLAP))
     del seq_b, seq_d, head
     # Path E: the serving batch; path F(2): one sparse-BA step in each layout.
     seq_e = serving_inputs(SERVE_B, SERVE_FRAMES, SERVE_SLOTS, DEFAULT_CONFIG, device)
@@ -1752,6 +1935,8 @@ def main() -> int:
         seqs = serving_inputs(SERVE_B, SERVE_FRAMES, SERVE_SLOTS, cfg, device)
         compare_serving(camera, cfg, seqs, device, table)
         serving[cfg.planar] = (cfg, seqs)
+    compare_chunked_k8(camera, config, (pts, apps, masks),
+                       chunk_plan(camera, config, pts, apps, masks), device, table)
     ba_problem = corridor(device)
     compare_sparse_ba_kernels(ba_problem[1], device, table)
     compare_wide_sparse_ba(device, table)
@@ -1769,7 +1954,8 @@ def main() -> int:
         launches["A"] = run_path_a(work, device)
         phase("path A", t0)
         t0 = time.perf_counter()
-        launches["B"], _, _ = run_path_b(camera, config, pts, apps, masks, device)
+        launches["B"], path_b_traj, path_b_fps = run_path_b(camera, config, pts, apps, masks,
+                                                            device)
         phase("path B", t0)
         t0 = time.perf_counter()
         launches["C"] = run_path_c(device)
@@ -1783,6 +1969,10 @@ def main() -> int:
         t0 = time.perf_counter()
         launches["step"] = run_step_form(camera, config, pts, apps, masks, device)
         phase("step form", t0)
+        t0 = time.perf_counter()
+        launches["H"] = run_path_h(camera, config, pts, apps, masks, device, path_b_traj,
+                                   path_b_fps)
+        phase("path H", t0)
         del pts, apps, masks, planar_seq
         t0 = time.perf_counter()
         launches["E"] = run_path_e(camera, serving, device)

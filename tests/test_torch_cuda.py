@@ -27,7 +27,7 @@ from visual_odometry_tpu_torch.ops.camera import project_points
 from visual_odometry_tpu_torch.ops.kernels import (
     frame_kernel, gather_kernel, matcher_kernel, picp_kernel, segsum_kernel,
 )
-from visual_odometry_tpu_torch.parallel import multiseq, sparse_ba
+from visual_odometry_tpu_torch.parallel import multiseq, posegraph, sparse_ba
 from visual_odometry_tpu_torch.utils import synthetic
 from visual_odometry_tpu_torch.utils.config import VOConfig
 
@@ -577,7 +577,7 @@ def _k8_args(dev, count, frames, slots, planar):
 
 
 @pytest.mark.parametrize("planar", [False, True])
-@pytest.mark.parametrize("count,slots", [(5, 64), (3, 200), (2, 512)])
+@pytest.mark.parametrize("count,slots", [(5, 64), (3, 200), (2, 512), (4, 1024)])
 def test_track_frames_batched_kernel_equals_single_launches(dev, planar, count, slots):
     """K8 per sequence against K4/K5 launched alone: every output bit for bit;
     and against its plain version."""
@@ -634,6 +634,32 @@ def test_run_sequences_batched_cuda_equals_run_sequence(dev):
         assert torch.equal(outs.tri_valid[i], o_i.tri_valid)
     looped = multiseq.run_sequences_batched(camera, cfg, *tensors, backend="torch")
     assert float((looped[0] - traj).abs().max()) <= 2e-3
+
+
+def test_run_sequence_chunked_cuda_equals_loop_form(dev):
+    """Chunked tracking on the card: the chunks as one batched program (K1
+    for the bootstrap scores, the chunks' bootstrap pairs and their flattened
+    pairs, one K2, three K3, one K8 and no K4) equal to the loop form (K4
+    once a chunk) bit for bit: trajectory, map and diagnostics."""
+    seq = synthetic.generate_tracking_sequence(np.random.default_rng(0), 64, 128)
+    pts, apps, masks = (torch.from_numpy(x).to(dev) for x in seq)
+    camera = synthetic.deep_camera(device=dev)
+    cfg = VOConfig(n_slots=128, map_capacity=512)
+    _lib.reset_launches()
+    got = posegraph.run_sequence_chunked(camera, cfg, pts, apps, masks, num_chunks=3, overlap=8)
+    want = {"match_pairs": 3, "join_candidates": 1, "gather_rows": 3, "track_frames_batched": 1,
+            "track_frames": 0}
+    assert {k: _lib.launches[k] for k in want} == want
+    _lib.reset_launches()
+    ids = torch.full(masks.shape, -1, dtype=torch.int32, device=dev)
+    starts, length, _ = posegraph._plan(cfg, pts, apps, masks, ids, False, 3, 8, None)
+    chunked = [posegraph._chunk(x, starts, length) for x in (pts, apps, masks, ids)]
+    loop = posegraph._track_and_stitch(camera, cfg, *chunked, starts, length, pts.shape[0],
+                                       False, batched=False)
+    assert _lib.launches["track_frames"] == 3 and _lib.launches["track_frames_batched"] == 0
+    assert bool((got[2].num_ratio_obs >= 8).all())
+    for a, b in zip((got[0], *got[1], *got[2]), (loop[0], *loop[1], *loop[2])):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("r", range(1, 13))

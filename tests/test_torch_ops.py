@@ -149,13 +149,12 @@ def test_config_mirrors_jax_fields_and_defaults():
     assert set(j.__dataclass_fields__) == set(VOConfig.__dataclass_fields__)
     with pytest.raises(ValueError):
         VOConfig(scan_backend="fused")
-    VOConfig(planar=True).check_supported()   # est_SE2 runs (kernel K5)
+    assert VOConfig(planar=True).planar   # est_SE2 runs (kernel K5)
     assert VOConfig(scan_backend="step").scan_backend == "step"
     with pytest.raises(ValueError):
         VOConfig(matcher_precision="bf16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VOConfig(num_chunks=4).check_supported()
-    VOConfig(refine_iterations=1, refine_backend="sparse").check_supported()   # BA is ported
+    assert VOConfig(num_chunks=4).num_chunks == 4   # chunked tracking runs (parallel/posegraph)
+    assert VOConfig(refine_iterations=1, refine_backend="sparse").refine_backend == "sparse"
     with pytest.raises(ValueError):
         VOConfig(refine_backend="lm")
     mount = np.eye(4, dtype=np.float32)

@@ -177,10 +177,6 @@ def test_check_bootstrap_raises_below_eight_matches():
     f = tpipe.FrameData(pts, apps, mask, ids)
     with pytest.raises(tpipe.BootstrapError):
         tpipe.check_bootstrap(VOConfig(n_slots=S), f, f)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.run_sequence(tsyn.default_camera(), VOConfig(n_slots=S, num_chunks=2),
-                           pts[None].expand(3, S, 2), apps[None].expand(3, S, 10),
-                           mask[None].expand(3, S))
 
 
 def _relative(poses):

@@ -186,7 +186,13 @@ def check_bootstrap(
 ) -> BootstrapDiagnostics:
     """Raise :class:`BootstrapError` on < ``min_correspondences`` matches and
     warn on a homography-explained (degenerate) bootstrap pair."""
-    d = bootstrap_diagnostics(config, frame0, frame1, use_known_da)
+    return judge_bootstrap(bootstrap_diagnostics(config, frame0, frame1, use_known_da),
+                           min_correspondences, degeneracy_threshold)
+
+
+def judge_bootstrap(d: BootstrapDiagnostics, min_correspondences: int = 8,
+                    degeneracy_threshold: float = DEGENERACY_THRESHOLD) -> BootstrapDiagnostics:
+    """:func:`check_bootstrap` on diagnostics already taken."""
     n = int(d.num_correspondences)
     if n < min_correspondences:
         raise BootstrapError(
@@ -197,14 +203,14 @@ def check_bootstrap(
     if math.isnan(score):
         warnings.warn(
             "too few correspondences survived the homography fit to assess bootstrap "
-            "degeneracy (no transfer residuals measured)", RuntimeWarning, stacklevel=2,
+            "degeneracy (no transfer residuals measured)", RuntimeWarning, stacklevel=3,
         )
     elif score < degeneracy_threshold:
         warnings.warn(
             f"bootstrap pair is homography-explained (median transfer residual {score:.2e} "
             f"< {degeneracy_threshold:.0e}): pure rotation / stationary / planar-only motion "
             "makes the 8-point translation and the monocular scale degenerate",
-            RuntimeWarning, stacklevel=2,
+            RuntimeWarning, stacklevel=3,
         )
     return d
 
@@ -450,7 +456,6 @@ def _track(camera: Camera, config: VOConfig, points, appearances, masks, ids,
 
 def _run(camera: Camera, config: VOConfig, points, appearances, masks, ids,
          use_known_da: bool = False):
-    config.check_supported()
     if points.shape[1] != config.n_slots:
         raise ValueError(f"frames have {points.shape[1]} slots, config.n_slots={config.n_slots}")
     if points.shape[0] < 3:
@@ -536,7 +541,6 @@ def continue_sequence(
     the float32 frame-0 chain products at the boundary. ``"step"`` loops over
     :func:`frame_step` with the per-frame map merge.
     """
-    config.check_supported()
     if points.shape[0] < 1:
         raise ValueError("continue_sequence needs at least one frame")
     frames = FrameData(points, appearances, masks, ids)

@@ -35,27 +35,48 @@ def normalize_points(points: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Te
     t = torch.tensor(
         [[0.0, 0.0, -1.0], [0.0, 0.0, -1.0], [0.0, 0.0, 1.0]],
         dtype=points.dtype, device=points.device,
-    )
-    t[0, 0] = 1.0 / safe_half[..., 0]
-    t[1, 1] = 1.0 / safe_half[..., 1]
+    ).repeat(points.shape[:-2] + (1, 1))
+    t[..., 0, 0] = 1.0 / safe_half[..., 0]
+    t[..., 1, 1] = 1.0 / safe_half[..., 1]
     return normalized, t
 
 
+def _trace(m: torch.Tensor) -> torch.Tensor:
+    """Trace over the last two axes. One matrix takes ``torch.trace``; a stack
+    repeats what that gives on the CPU (a sequential float64 sum, rounded
+    once), so that there each matrix of a stack gets the bits it gets alone.
+    That equality holds on the CPU alone: it is what the CPU tests of the
+    batched fits check. Were they held to the residuals' rounding instead,
+    ``m.diagonal(dim1=-2, dim2=-1).sum(-1)`` would do."""
+    if m.dim() == 2:
+        return torch.trace(m)
+    d = m.diagonal(dim1=-2, dim2=-1).double()
+    out = d[..., 0]
+    for i in range(1, d.shape[-1]):
+        out = out + d[..., i]
+    return out.to(m.dtype)
+
+
 def _null_vector(ata: torch.Tensor, iters: int = 3) -> torch.Tensor:
-    """Unit null vector of a PSD normal matrix: eigh, then ridge-regularized
-    inverse iteration (the f32 eigh vector alone is too coarse for E)."""
+    """Unit null vector of a PSD normal matrix (..., n, n): eigh, then
+    ridge-regularized inverse iteration (the f32 eigh vector alone is too
+    coarse for E), each matrix of a stack on its own."""
     _, vecs = torch.linalg.eigh(ata)
-    v0 = vecs[:, 0]
-    ridge = 1e-6 * torch.trace(ata)
-    ata_r = ata + ridge * torch.eye(ata.shape[0], dtype=ata.dtype, device=ata.device)
+    v0 = vecs[..., :, 0]
+    ridge = 1e-6 * _trace(ata)
+    ata_r = ata + ridge[..., None, None] * torch.eye(ata.shape[-1], dtype=ata.dtype,
+                                                    device=ata.device)
     v = v0
     for _ in range(iters):
         # solve_ex, not solve: a singular system must fall back to the eigh
         # vector below (JAX's solve yields non-finite values there), not raise.
+        # A stack's solutions come back column-major: made row-major, each
+        # row's norm is summed in the order of a lone vector's (on the CPU;
+        # the card's order is its own).
         sol, info = torch.linalg.solve_ex(ata_r, v)
-        v = torch.where(info == 0, sol, float("nan"))
-        v = v / torch.clamp(torch.linalg.norm(v), min=1e-30)
-    return torch.where(torch.all(torch.isfinite(v)), v, v0)
+        v = torch.where((info == 0)[..., None], sol, float("nan")).contiguous()
+        v = v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-30)
+    return torch.where(torch.isfinite(v).all(dim=-1, keepdim=True), v, v0)
 
 
 def _design_rows(d1: torch.Tensor, d2: torch.Tensor, corr_valid: torch.Tensor) -> torch.Tensor:
@@ -100,24 +121,31 @@ def essential_to_transform_pair(e: torch.Tensor):
 
 def homography_transfer_residuals(idx1, idx2, corr_valid, p1_img, p2_img, mask1, mask2):
     """Per-correspondence transfer residual of the best-fit DLT homography, in
-    the [-1, 1]-normalized frame; returns (residuals, valid)."""
+    the [-1, 1]-normalized frame; returns (residuals, valid). Takes one frame
+    pair (idx (S,), points (S, 2)) or a stack of them (leading axes on every
+    argument), each pair solved on its own."""
     p1n, _ = normalize_points(p1_img, mask1)
     p2n, _ = normalize_points(p2_img, mask2)
-    i1, i2 = idx1.long(), idx2.long()
-    x1, y1 = p1n[i1, 0], p1n[i1, 1]
-    x2, y2 = p2n[i2, 0], p2n[i2, 1]
+
+    def take(p, idx):   # the rows idx of p, as x and y
+        rows = torch.gather(p, -2, idx.long()[..., None].expand(idx.shape + (2,)))
+        return rows[..., 0], rows[..., 1]
+
+    x1, y1 = take(p1n, idx1)
+    x2, y2 = take(p2n, idx2)
     zeros = torch.zeros_like(x1)
     ones = torch.ones_like(x1)
     row_a = torch.stack([x1, y1, ones, zeros, zeros, zeros, -x2 * x1, -x2 * y1, -x2], dim=-1)
     row_b = torch.stack([zeros, zeros, zeros, x1, y1, ones, -y2 * x1, -y2 * y1, -y2], dim=-1)
-    rows = torch.cat([row_a, row_b], dim=0)
-    keep = torch.cat([corr_valid, corr_valid])[:, None]
+    rows = torch.cat([row_a, row_b], dim=-2)
+    keep = torch.cat([corr_valid, corr_valid], dim=-1)[..., None]
     rows = torch.where(keep, rows, torch.zeros_like(rows))
-    h = _null_vector(rows.T @ rows, iters=2).reshape(3, 3)
+    h = _null_vector(rows.transpose(-1, -2) @ rows, iters=2).reshape(rows.shape[:-2] + (3, 3))
 
-    px = h[0, 0] * x1 + h[0, 1] * y1 + h[0, 2]
-    py = h[1, 0] * x1 + h[1, 1] * y1 + h[1, 2]
-    pz = h[2, 0] * x1 + h[2, 1] * y1 + h[2, 2]
+    def row(i):   # homography row i applied to (x1, y1, 1)
+        return h[..., i, 0, None] * x1 + h[..., i, 1, None] * y1 + h[..., i, 2, None]
+
+    px, py, pz = row(0), row(1), row(2)
     safe_pz = torch.where(pz.abs() < 1e-12, torch.ones_like(pz), pz)
     res = torch.hypot(px / safe_pz - x2, py / safe_pz - y2)
     valid = corr_valid & (pz.abs() >= 1e-12)

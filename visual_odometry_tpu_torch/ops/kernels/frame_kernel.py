@@ -564,16 +564,21 @@ def track_frames(
 
 def track_frames_batched_plain(params, pose0, init_tri, init_tri_ok, cand: JoinCandidates,
                                prev_al, cur_al, corr_valid, num_iterations: int,
-                               min_iterations: int = 1, planar: bool = False):
+                               min_iterations: int = 1, planar: bool = False, rounds_out=None):
     """Plain PyTorch version of K8: :func:`track_frames_plain` on each sequence
-    in turn, the shared parameter row with that sequence's start pose in it."""
+    in turn, the shared parameter row with that sequence's start pose in it;
+    each sequence's list of GN round counts a frame is appended to the list
+    ``rounds_out``, if given."""
     outs = []
     for i in range(pose0.shape[0]):
         row = params.clone()
         row[28:40] = pose0[i]
+        rounds = None if rounds_out is None else []
         outs.append(track_frames_plain(
             row, init_tri[i], init_tri_ok[i], JoinCandidates(*(x[i] for x in cand)), prev_al[i],
-            cur_al[i], corr_valid[i], num_iterations, min_iterations, planar))
+            cur_al[i], corr_valid[i], num_iterations, min_iterations, planar, rounds))
+        if rounds_out is not None:
+            rounds_out.append(rounds)
     return tuple(torch.stack(x) for x in zip(*outs))
 
 

@@ -13,7 +13,8 @@ independent sequences. Two forms:
   frame slices in place — and the frame loops run as
   one K8 launch, one CTA per sequence
   (``ops/kernels/frame_kernel.track_frames_batched``). The chain products and
-  the ``merge_stream`` fold then run per sequence.
+  the ``merge_stream`` fold then run per sequence. The tracking half,
+  ``_track_batched``, also tracks the chunks of ``parallel/posegraph``.
 * ``backend="torch"``: the counterpart of the JAX ``vmap`` form, a loop of
   ``pipeline._run`` over the sequences under the config's own backends.
 
@@ -47,20 +48,24 @@ def _stack(items):
     return type(items[0])(*(torch.stack(x) for x in zip(*items)))
 
 
-def _run_serving(camera: Camera, config: VOConfig, points, appearances, masks
-                 ) -> Tuple[torch.Tensor, LandmarkMap, pipeline.FrameOutput]:
-    """The batched tracking program, every stage batch-aware; mirrors
-    ``pipeline._run`` stage by stage with a leading sequence axis."""
+def _track_batched(camera: Camera, config: VOConfig, points, appearances, masks, ids,
+                   use_known_da: bool = False):
+    """``pipeline._track`` over a batch of sequences (B, F, S, ...), every
+    stage batch-aware: the bootstrap pairs in one match, the init per
+    sequence, then K1 over the ``B*(F-2)`` flattened consecutive pairs, K2
+    over their frames, three K3 gathers and one K8 launch. Returns what
+    ``pipeline._track`` returns, each with a leading batch axis: (x_init
+    (B, 4, 4), FrameOutput (B, F-2, ...), InitTriangulation (B, S, ...)).
+    ``use_known_da`` associates by the ``ids`` (``pipeline.match_by_ids``)."""
     n, f, s, _ = points.shape
     backend = config.scan_backend
-    ids = torch.full(masks.shape, -1, dtype=torch.int32, device=masks.device)
     frames_all = pipeline.FrameData(points, appearances, masks, ids)
     f0 = pipeline.FrameData(*(x[:, 0] for x in frames_all))
     f1 = pipeline.FrameData(*(x[:, 1] for x in frames_all))
 
     # Two-frame bootstrap: one pair match over the batch, then the init per sequence.
     with stage("bootstrap_match"):
-        corr01 = pipeline._batched_match(config, False, f1, f0)
+        corr01 = pipeline._batched_match(config, use_known_da, f1, f0)
     with stage("bootstrap_init"):
         states, x_inits = [], []
         for i in range(n):
@@ -88,7 +93,7 @@ def _run_serving(camera: Camera, config: VOConfig, points, appearances, masks
     prev = pipeline.FrameData(*(x[:, 1:-1] for x in frames_all))
     with stage("batched_match"):
         corr_all = pipeline._batched_match(
-            config, False, pipeline.FrameData(*(flat(x) for x in rest)),
+            config, use_known_da, pipeline.FrameData(*(flat(x) for x in rest)),
             pipeline.FrameData(*(flat(x) for x in prev)))
 
     # World-join candidate chains, one launch over B*(F-2) frames.
@@ -135,6 +140,16 @@ def _run_serving(camera: Camera, config: VOConfig, points, appearances, masks
         tri_valid=tri_ok_all,
         join_overflow=cand.overflow.sum(dim=-1).to(torch.int32),
     )
+    return x_init, outs, init_tri
+
+
+def _run_serving(camera: Camera, config: VOConfig, points, appearances, masks
+                 ) -> Tuple[torch.Tensor, LandmarkMap, pipeline.FrameOutput]:
+    """The batched tracking program, every stage batch-aware; mirrors
+    ``pipeline._run`` stage by stage with a leading sequence axis."""
+    n = points.shape[0]
+    ids = torch.full(masks.shape, -1, dtype=torch.int32, device=masks.device)
+    x_init, outs, init_tri = _track_batched(camera, config, points, appearances, masks, ids)
 
     # The frame -> frame-0 chains of all sequences in one scan (the products
     # run along the frame axis, each sequence on its own), then one map fold
@@ -142,16 +157,16 @@ def _run_serving(camera: Camera, config: VOConfig, points, appearances, masks
     # may round differently from run_sequence's over one: map positions agree
     # to the last bits, not bit for bit.
     with stage("chains_and_transform"):
-        inv_poses = se3.inverse(poses)
+        inv_poses = se3.inverse(outs.pose)
         heads = torch.cat([se3.inverse(x_init)[:, None], inv_poses[:, :-1]], dim=1)
         chains = se3.chain_products(heads.transpose(0, 1)).transpose(0, 1)
-        tri_world = se3.transform_points(chains, tri_all)
+        tri_world = se3.transform_points(chains, outs.tri_points)
     with stage("map_fold"):
         maps = [pipeline._fold_map(config, type(init_tri)(*(x[i] for x in init_tri)),
                                    tri_world[i], type(outs)(*(x[i] for x in outs)))
                 for i in range(n)]
     eye = torch.eye(4, dtype=points.dtype, device=points.device).expand(n, 1, 4, 4)
-    trajectory = torch.cat([eye, x_init[:, None], poses], dim=1)
+    trajectory = torch.cat([eye, x_init[:, None], outs.pose], dim=1)
     return trajectory, _stack(maps), outs
 
 
@@ -182,7 +197,6 @@ def run_sequences_batched(
         raise NotImplementedError(
             f"run_sequences_batched over a mesh (axis {dp_axis!r}: the batch sharded over "
             "several cards) is not ported yet: ROADMAP.md queue 1 item 12")
-    config.check_supported()
     if points.shape[2] != config.n_slots:
         raise ValueError(f"frames have {points.shape[2]} slots, config.n_slots={config.n_slots}")
     if points.shape[1] < 3:

@@ -63,7 +63,9 @@ class VOConfig:
     planar: bool = False
     cam_in_robot: "tuple | None" = None
 
-    # --- sequence parallelism (not ported yet) ---
+    # --- sequence parallelism (parallel/posegraph): apps.run_vo_complete
+    # tracks the sequence as num_chunks overlapping chunks and stitches them;
+    # 1 = the serial pipeline.
     num_chunks: int = 1
     chunk_overlap: int = 10
 
@@ -105,14 +107,6 @@ class VOConfig:
         """Enable SE(2) estimation with the given camera-mount pose."""
         mount = tuple(tuple(float(x) for x in row) for row in np.asarray(cam_in_robot))
         return self.replace(planar=True, cam_in_robot=mount)
-
-    def check_supported(self) -> None:
-        """Raise NotImplementedError for options this port does not run yet."""
-        if self.num_chunks > 1:
-            raise NotImplementedError(
-                "num_chunks > 1 (chunked tracking, parallel/posegraph) is not "
-                "ported yet: ROADMAP.md queue 1 item 11"
-            )
 
 
 DEFAULT_CONFIG = VOConfig()
