@@ -41,6 +41,22 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      run_relocalize (both matcher precisions) on cuda, apps.run_evaluation —
      held to the accuracy bounds of tests/test_dataset_gen.py, the planar
      subgroup bound and the relocalization bounds of tests/test_relocalize.py;
+     then the reference's remaining programs, each with the counters zeroed
+     before it and read after it: run_real_init, run_picp_known_real (K6
+     once a frame; scale and RMSE within 1e-3, tests/test_apps.py:25-37),
+     run_compute_corr (K1; the appearance pairs equal the id pairs) and
+     run_read_data_test on the dataset; run_init_synthetic,
+     run_picp_synthetic (K6, 1,000 rounds), run_whole_synthetic (K6) and
+     run_kdtree_test (K9 for the tree's node sums) at the JAX package's
+     default sizes and guards. Every K6 solve these apps make is run again
+     through its plain version on the same card tensors (poses within
+     GN_POSE_TOL, equal inlier counts), and kdtree_test's tree is built again
+     on the CPU with K9's plain version (the same leaves, the same
+     best_match_fast answers). The native loader is held bit for bit to the
+     numpy one on the dataset and on a 121-frame x 1,000-landmark one, both
+     parse times printed. The figures (utils/plots) run no kernel and need
+     matplotlib, which the card's machine lacks: tests/test_torch_plots.py
+     holds them on the CPU;
   5. path B: pipeline.run_sequence at 1024 slots x 512 frames, held against
      the same run through the plain versions, and its frames/s;
   6. path C: map-scale relocalization, pipeline.relocalize_frame of 1024
@@ -87,6 +103,7 @@ card's name and power limit, the kernel table ({"kernels": [...]}) and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -1227,9 +1244,192 @@ def run_path_a(work_dir: str, device, require_launches: bool = True):
         report["relocalize_" + precision] = [list(r) for r in rows]
     sync(device)
     launches = read_launches(PATH_A, "path A", require_launches)
+    app_launches = run_path_a_apps(data, work_dir, device, require_launches)
+    launches = {k: launches[k] + app_launches[k] for k in launches}
     report["launches"] = launches
     print(json.dumps({"path_a": report}))
     return launches
+
+
+@contextlib.contextmanager
+def recording(module, name: str):
+    """Records every call of ``module.name`` made inside the block as
+    (args, kwargs, result) in the list it yields."""
+    fn, calls = getattr(module, name), []
+
+    def record(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def hold_solves_to_plain(calls, label: str) -> float:
+    """Each recorded K6 solve (picp_kernel.solve_fused) run again through its
+    plain version on the same card tensors: the poses within GN_POSE_TOL and
+    the inlier counts equal. Returns the largest pose difference."""
+    from visual_odometry_tpu_torch.ops.kernels import picp_kernel
+
+    require(len(calls) > 0, f"{label}: no K6 solve was recorded")
+    err = 0.0
+    for f, (args, kwargs, (pose, stats)) in enumerate(calls):
+        kw = {k: v for k, v in kwargs.items() if k != "backend"}
+        pose_p, stats_p = picp_kernel.solve_fused_plain(*args, **kw)
+        e = float((pose - pose_p).abs().max())
+        require(e <= GN_POSE_TOL, f"{label}: solve {f} is {e} off its plain version")
+        require(int(stats.num_inliers) == int(stats_p.num_inliers),
+                f"{label}: solve {f} has {int(stats.num_inliers)} inliers, its plain version "
+                f"{int(stats_p.num_inliers)}")
+        err = max(err, e)
+    return err
+
+
+def hold_tree_to_plain(builds, matches, label: str) -> None:
+    """kdtree_test's tree built again on the CPU, its node sums by K9's plain
+    version: the same leaves as the card's tree (an eigenvector's sign may
+    differ between eigensolvers, so codes are not compared), and the same
+    best_match_fast indices and found flags on the same queries."""
+    import torch
+
+    from visual_odometry_tpu_torch.ops import pca_tree
+
+    require(len(builds) == 1 and len(matches) == 1,
+            f"{label}: {len(builds)} builds and {len(matches)} matches recorded")
+    def cpu_(a):
+        return a.cpu() if torch.is_tensor(a) else a
+
+    args, kw, card = builds[0]
+    cpu = pca_tree.build_tree(*map(cpu_, args), **kw)
+
+    def leaves(codes):
+        codes = codes.cpu().numpy()
+        return {frozenset(np.flatnonzero(codes == c).tolist())
+                for c in np.unique(codes[codes >= 0])}
+
+    require(leaves(card.codes) == leaves(cpu.codes), f"{label}: the leaves differ from the CPU's")
+    args, kw, got = matches[0]
+    want = pca_tree.best_match_fast(cpu, *map(cpu_, args[1:]), **kw)
+    for name, g, w in zip(("indices", "found flags"), got, want):
+        require(torch.equal(g.cpu(), w), f"{label}: best_match_fast's {name} differ from the CPU's")
+
+
+def run_path_a_apps(data: str, work_dir: str, device, require_launches: bool = True):
+    """The reference's remaining programs on the card: the dataset apps on
+    path A's dataset and the synthetic apps at the JAX package's defaults,
+    each kernel call held to its plain version on the same inputs, and the
+    native loader against numpy on path A's dataset and on one of the
+    reference example's size. The counters are zeroed before each app and
+    read after it; each app must launch its own kernels. Returns the
+    launches summed over the apps."""
+    from visual_odometry_tpu_torch import apps
+    from visual_odometry_tpu_torch.ops import pca_tree
+    from visual_odometry_tpu_torch.ops.kernels import _lib, picp_kernel
+    from visual_odometry_tpu_torch.utils import dataset_gen, evaluation, io
+
+    report, total = {}, {k: 0 for k in _lib.launches}
+
+    def run(name, fn, needs=()):
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        with recording(picp_kernel, "solve_fused") as solves:
+            out = fn()
+            sync(device)
+        report[name] = {"seconds": time.perf_counter() - t0}
+        got = read_launches(needs, f"path A {name}", require_launches)
+        report[name]["launches"] = {k: v for k, v in got.items() if v}
+        for k in total:
+            total[k] += got[k]
+        if "picp_solve" in needs:
+            t0 = time.perf_counter()
+            report[name]["max_abs_err_vs_plain"] = hold_solves_to_plain(solves, f"path A {name}")
+            report[name]["plain_seconds"] = time.perf_counter() - t0
+            report[name]["solves_vs_plain"] = len(solves)
+        return out
+
+    out = os.path.join(work_dir, "apps")
+    x, tri = run("real_init", lambda: apps.run_real_init(data, out, verbose=False, device=device))
+    require(len(tri) >= 50, f"path A real_init: {len(tri)} triangulated points")
+    for name in ("world.txt", "triangulated.txt"):
+        require(os.path.getsize(os.path.join(out, name)) > 0, f"path A real_init: no {name}")
+    report["real_init"]["triangulated"] = len(tri)
+
+    poses = run("picp_known_real", lambda: apps.run_picp_known_real(
+        data, out, verbose=False, device=device), ("picp_solve",))
+    params = io.load_camera_params(os.path.join(data, "camera.dat"))
+    gt = io.gt_poses_se3(io.load_trajectory(os.path.join(data, "trajectory.dat"))[1])
+    res = evaluation.evaluate(io.robot_trajectory(poses, params.cam_in_robot), gt)
+    require(abs(res.scale - 1.0) < 1e-3 and res.rmse_position < 1e-3,   # tests/test_apps.py:25-37
+            f"path A picp_known_real: scale {res.scale}, RMSE {res.rmse_position}")
+    k6 = report["picp_known_real"]["launches"].get("picp_solve", 0)
+    require(k6 == len(poses) or not require_launches,
+            f"path A picp_known_real: {k6} K6 launches for {len(poses)} frames")
+    require(report["picp_known_real"]["solves_vs_plain"] == len(poses),
+            "path A picp_known_real: not every frame's solve was held to its plain version")
+    report["picp_known_real"].update(scale=res.scale, rmse_position=res.rmse_position)
+
+    a_set, g_set = run("compute_corr", lambda: apps.run_compute_corr(
+        data, verbose=False, device=device), ("match_pairs",))
+    require(a_set == g_set and len(a_set) > 50,
+            f"path A compute_corr: {len(a_set)} appearance pairs, {len(g_set)} id pairs, "
+            f"{len(a_set & g_set)} agree")
+    report["compute_corr"]["pairs"] = len(a_set)
+    run("read_data_test", lambda: apps.run_read_data_test(data))
+
+    x, x_gt = run("init", lambda: apps.run_init_synthetic(num_points=1000, verbose=False,
+                                                          device=device))
+    ratio = x[:3, 3] / x_gt[:3, 3]
+    r_err = float(np.abs(x[:3, :3] - x_gt[:3, :3]).max())
+    require(r_err < 5e-3 and np.abs(ratio - ratio.mean()).max() < 1e-2 * abs(ratio.mean()),
+            f"path A init: R off by {r_err}, t ratios {ratio}")   # tests/test_apps.py:60-65
+    report["init"].update(r_err=r_err, t_ratio=ratio.tolist())
+
+    x, x_gt = run("picp_test", lambda: apps.run_picp_synthetic(
+        num_points=1000, iterations=1000, verbose=False, device=device), ("picp_solve",))
+    r_err, t_err = (float(np.abs(x[:3, c] - x_gt[:3, c]).max()) for c in (slice(0, 3), 3))
+    require(r_err < 1e-3 and t_err < 1e-2, f"path A picp_test: R {r_err}, t {t_err}")
+    report["picp_test"].update(r_err=r_err, t_err=t_err)
+
+    x, x_gt = run("whole_test", lambda: apps.run_whole_synthetic(
+        num_points=1000, verbose=False, device=device), ("picp_solve",))
+    r_err = float(np.abs(x[:3, :3] - x_gt[:3, :3]).max())
+    require(r_err < 1e-2, f"path A whole_test: R off by {r_err}")
+    report["whole_test"]["r_err"] = r_err
+
+    with recording(pca_tree, "build_tree") as builds, \
+            recording(pca_tree, "best_match_fast") as matches:
+        correct = run("kdtree_test", lambda: apps.run_kdtree_test(
+            num_points=500, verbose=False, device=device), ("segment_sum",))
+    require(correct.mean() > 0.9, f"path A kdtree_test: {correct.mean()} correct")
+    hold_tree_to_plain(builds, matches, "path A kdtree_test")
+    report["kdtree_test"].update(correct=float(correct.mean()), max_abs_err_vs_plain=0.0)
+
+    big = os.path.join(work_dir, "data_121")
+    dataset_gen.generate_dataset(big, num_frames=121, num_landmarks=1000, seed=2)
+    loader = {}
+    for label, d in (("path_a", data), ("121x1000", big)):
+        seqs, times = {}, {}
+        for parser in ("native", "numpy"):    # the parser was built by path A's first load
+            samples = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                seqs[parser] = io.load_sequence(d, None, parser=parser)
+                samples.append(time.perf_counter() - t0)
+            times[parser + "_s"] = statistics.median(samples)
+        for f in ("points", "appearances", "ids", "mask", "counts"):
+            a, b = getattr(seqs["native"], f), getattr(seqs["numpy"], f)
+            require(a.dtype == b.dtype and np.array_equal(a, b),
+                    f"native loader: {f} differs from numpy's on {label}")
+        loader[label] = {"frames": len(seqs["numpy"].counts), **times}
+        print(f"loader {label}: native {times['native_s'] * 1e3:.2f} ms, numpy "
+              f"{times['numpy_s'] * 1e3:.2f} ms (medians of 3), identical arrays")
+    report["native_loader"] = loader
+    print(json.dumps({"path_a_apps": report}))
+    return total
 
 
 def run_path_b(camera, config, pts, apps, masks, device, require_launches: bool = True,

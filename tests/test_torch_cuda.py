@@ -868,3 +868,54 @@ def test_sparse_ba_step_past_1024_poses_on_the_card(dev):
     assert float((poses[:, :3, 3] - ref.poses[:, :3, 3]).abs().max()) <= t_tol
     torch.testing.assert_close(got.landmarks.cpu(), ref.landmarks, rtol=0, atol=5e-4)
     assert abs(float(stats.chi) - float(ref_stats.chi)) <= 1e-4 * float(ref_stats.chi)
+
+
+def test_pca_tree_on_the_card_matches_the_cpu(dev):
+    """A tree built on the card (its node sums by K9) has the CPU tree's
+    leaves, the same bits in two builds, and gives the CPU's query answers."""
+    from visual_odometry_tpu_torch.ops import pca_tree
+
+    rng = np.random.default_rng(5)
+    db = rng.uniform(-1, 1, (600, 10)).astype(np.float32)
+    mask = rng.uniform(size=600) > 0.1
+    q = (db[rng.integers(0, 600, 128)] + rng.normal(0, 0.1, (128, 10))).astype(np.float32)
+    qm = np.ones(128, bool)
+    cpu = pca_tree.build_tree(torch.from_numpy(db), torch.from_numpy(mask), 5)
+    args = [torch.from_numpy(x).to(dev) for x in (db, mask)]
+    _lib.reset_launches()
+    card = pca_tree.build_tree(*args, 5)
+    assert _lib.launches["segment_sum"] == 10
+    again = pca_tree.build_tree(*args, 5)
+    assert torch.equal(card.axes, again.axes) and torch.equal(card.codes, again.codes)
+
+    def leaves(codes):
+        codes = codes.cpu().numpy()
+        return {frozenset(np.flatnonzero(codes == c).tolist()) for c in np.unique(codes[codes >= 0])}
+
+    assert leaves(card.codes) == leaves(cpu.codes)
+    got = pca_tree.best_match_fast(card, args[0], torch.from_numpy(q).to(dev),
+                                   torch.from_numpy(qm).to(dev), 0.4)
+    want = pca_tree.best_match_fast(cpu, torch.from_numpy(db), torch.from_numpy(q),
+                                    torch.from_numpy(qm), 0.4)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_synthetic_apps_on_the_card(dev):
+    """The synthetic programs on the card meet the JAX package's guards and
+    launch K6 once a solve; the PICP solve at 100 rounds lies within 1e-4 of
+    the CPU's plain loop."""
+    from visual_odometry_tpu_torch import apps
+
+    _lib.reset_launches()
+    x, x_gt = apps.run_picp_synthetic(num_points=1000, iterations=100, verbose=False, device=dev)
+    assert _lib.launches["picp_solve"] == 1
+    np.testing.assert_allclose(x[:3, :3], x_gt[:3, :3], atol=1e-3)
+    xc, _ = apps.run_picp_synthetic(num_points=1000, iterations=100, verbose=False, device="cpu")
+    np.testing.assert_allclose(x, xc, atol=1e-4)
+    x, x_gt = apps.run_whole_synthetic(num_points=1500, verbose=False, device=dev)
+    assert _lib.launches["picp_solve"] == 2
+    np.testing.assert_allclose(x[:3, :3], x_gt[:3, :3], atol=1e-2)
+    x, x_gt = apps.run_init_synthetic(num_points=400, verbose=False, device=dev)
+    np.testing.assert_allclose(x[:3, :3], x_gt[:3, :3], atol=5e-3)
+    assert apps.run_kdtree_test(num_points=300, verbose=False, device=dev).mean() > 0.9

@@ -72,3 +72,23 @@ def test_compact_returns_live_rows_in_order():
     p, a = tlm.compact(m)
     np.testing.assert_array_equal(p, [[0, 1, 2], [6, 7, 8]])
     assert a.shape == (2, 2)
+
+
+def test_transform_matches_jax(rng):
+    """Points moved by the pose within float32 round-off (1e-5 relative) of
+    the JAX function's; appearances, validity and count untouched (exact)."""
+    from visual_odometry_tpu.ops import se3 as jse3
+
+    pts, apps, mask = _stream(rng)
+    jm = jlm.merge_stream(jnp.asarray(pts), jnp.asarray(apps), jnp.asarray(mask), 512)
+    tm = tlm.merge_stream(torch.from_numpy(pts), torch.from_numpy(apps),
+                          torch.from_numpy(mask), 512)
+    pose = np.asarray(jse3.v2t_euler(rng.uniform(-1, 1, 6).astype(np.float32)))
+    jt = jlm.transform(jm, jnp.asarray(pose))
+    tt = tlm.transform(tm, torch.from_numpy(np.array(pose)))
+    assert int(tt.count) == int(jt.count)
+    np.testing.assert_array_equal(tt.valid.numpy(), np.asarray(jt.valid))
+    np.testing.assert_array_equal(tt.appearances.numpy(), tm.appearances.numpy())
+    live = tt.valid.numpy()
+    np.testing.assert_allclose(tt.points.numpy()[live], np.asarray(jt.points)[live],
+                               rtol=1e-5, atol=1e-5)

@@ -62,8 +62,8 @@ def test_chain_products_keeps_order(rng):
 
 
 def test_project_points_matches_jax(rng):
-    world = jsyn.generate_points3d(rng, 300)
-    pose = jsyn.generate_pose(rng)
+    world = tsyn.generate_points3d(rng, 300)
+    pose = tsyn.generate_pose(rng)
     juv, jv = jcam.project_points(jsyn.default_camera(pose), jnp.asarray(world))
     tuv, tv = tcam.project_points(tsyn.default_camera(pose), T(world))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
@@ -71,8 +71,8 @@ def test_project_points_matches_jax(rng):
 
 
 def test_triangulation_matches_jax(rng):
-    world, w1, w2, p1, p2, valid, x12 = jsyn.two_view_scene(rng, 400)
-    k = np.asarray(jsyn.default_camera().camera_matrix)
+    world, w1, w2, p1, p2, valid, x12 = tsyn.two_view_scene(rng, 400)
+    k = tsyn.default_camera().camera_matrix.numpy()
     idx = np.arange(400, dtype=np.int32)
     jp, jok = jtri.triangulate_correspondences(k, x12, idx, idx, valid, p1, p2)
     tp, tok = ttri.triangulate_correspondences(T(k), T(x12), T(idx), T(idx), T(valid), T(p1), T(p2))
@@ -109,6 +109,107 @@ def test_estimate_transform_matches_jax(seed):
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
     np.testing.assert_allclose(np.median(tres.numpy()[tok.numpy()]),
                                np.median(np.asarray(jres)[np.asarray(jok)]), rtol=1e-2)
+
+
+def test_synthetic_generators_match_jax_bit_for_bit():
+    """generate_pose, generate_points3d and two_view_scene draw the same numbers
+    in the same order as the JAX package's: the drawn arrays (poses, points,
+    ground-truth relative pose) are equal bit for bit, and so are the
+    validity masks. two_view_scene's pixels go through each package's own
+    project_points, whose float32 products round apart: they are held to
+    test_project_points_matches_jax's tolerance (measured: 4.3e-5 at most)."""
+    for seed in range(4):
+        jr, tr = np.random.default_rng(seed), np.random.default_rng(seed)
+        np.testing.assert_array_equal(tsyn.generate_pose(tr), jsyn.generate_pose(jr))
+        np.testing.assert_array_equal(tsyn.generate_points3d(tr, 257),
+                                      jsyn.generate_points3d(jr, 257))
+        got = tsyn.two_view_scene(tr, 300)
+        want = [np.asarray(w) for w in jsyn.two_view_scene(jr, 300)]
+        assert [g.dtype for g in got] == [w.dtype for w in want]
+        for i in (0, 1, 2, 5, 6):   # world, w1, w2, corr_valid, x_1_in_2
+            np.testing.assert_array_equal(got[i], want[i])
+        for i in (3, 4):            # p1, p2
+            np.testing.assert_allclose(got[i], want[i], rtol=1e-5, atol=1e-3)
+        assert tr.uniform() == jr.uniform()     # both generators left in one state
+
+
+def test_radius_search_matches_jax(rng):
+    """Exact: the same (Q, K) mask, strict ``<``, both masks applied."""
+    q = rng.uniform(-1, 1, (40, 10)).astype(np.float32)
+    db = np.concatenate([q[::2] + rng.normal(0, 0.02, (20, 10)).astype(np.float32),
+                         rng.uniform(-1, 1, (50, 10)).astype(np.float32)])
+    qm, dm = rng.uniform(size=40) > 0.1, rng.uniform(size=70) > 0.1
+    for radius in (0.1, 0.2, 1.5):
+        want = np.asarray(jmat.radius_search(q, qm, db, dm, radius))
+        got = tmat.radius_search(T(q), T(qm), T(db), T(dm), radius).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert got.any() and not got.all()
+
+
+def _up_to_sign_and_scale(a):
+    a = a / np.linalg.norm(a)
+    return a * np.sign(a.flat[np.argmax(np.abs(a))])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_estimate_essential_matches_jax_in_double(seed):
+    """E up to sign and scale within 1e-5 of the JAX function evaluated in
+    float64 (the port forms the normal matrix in float64, the parity
+    contract's standing departure), and within 1e-3 of the ground truth
+    ``transform_to_essential`` of the scene's pose."""
+    import jax
+
+    world, w1, w2, p1, p2, valid, x12 = tsyn.two_view_scene(np.random.default_rng(seed), 1000)
+    k = tsyn.default_camera().camera_matrix.numpy()
+    idx = np.arange(1000, dtype=np.int32)
+    with jax.enable_x64(True):
+        want = np.asarray(jepi.estimate_essential(
+            k.astype(np.float64), idx, idx, valid, p1.astype(np.float64), p2.astype(np.float64)))
+        e_gt = np.asarray(jepi.transform_to_essential(x12.astype(np.float64)))
+    got = tepi.estimate_essential(T(k), T(idx), T(idx), T(valid), T(p1), T(p2)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(_up_to_sign_and_scale(got), _up_to_sign_and_scale(want),
+                               atol=1e-5)
+    np.testing.assert_allclose(tepi.transform_to_essential(T(x12).double()).numpy(), e_gt,
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(_up_to_sign_and_scale(got), _up_to_sign_and_scale(e_gt),
+                               atol=1e-3)
+
+
+def test_normalize_points_gauss_matches_jax(rng):
+    """Whitened points and T within 1e-5 (float32) and 1e-12 (float64) of the
+    JAX function's; the live points come out with zero mean and identity
+    covariance; the degenerate cases (one live point, points on a line of
+    constant y) take the identity transform in both."""
+    import jax
+
+    pts = (rng.uniform(0, 640, (50, 2)) * [1.0, 0.75]).astype(np.float32)
+    mask = rng.uniform(size=50) > 0.2
+    for dtype, tol in ((np.float32, 1e-5), (np.float64, 1e-12)):
+        with jax.enable_x64(dtype == np.float64):
+            jp, jt = (np.asarray(x) for x in jepi.normalize_points_gauss(pts.astype(dtype), mask))
+        tp, tt = (x.numpy() for x in tepi.normalize_points_gauss(T(pts.astype(dtype)), T(mask)))
+        np.testing.assert_allclose(tp, jp, rtol=tol, atol=tol)
+        np.testing.assert_allclose(tt, jt, rtol=tol, atol=tol)
+    live = tp[mask]
+    np.testing.assert_allclose(live.mean(0), 0.0, atol=1e-9)
+    np.testing.assert_allclose(np.cov(live.T), np.eye(2), atol=1e-9)
+    np.testing.assert_array_equal(tp[~mask], pts[~mask])
+    line = np.stack([np.arange(8.0), np.full(8, 3.0)], 1).astype(np.float32)
+    for m in (np.arange(8) < 1, np.ones(8, bool)):
+        jp, jt = (np.asarray(x) for x in jepi.normalize_points_gauss(line, m))
+        tp, tt = (x.numpy() for x in tepi.normalize_points_gauss(T(line), T(m)))
+        np.testing.assert_array_equal(tt, np.eye(3))
+        np.testing.assert_array_equal(jt, np.eye(3))
+        np.testing.assert_array_equal(tp, jp)
+
+
+def test_identity_pose_matches_jax():
+    for jd, td in ((jnp.float32, torch.float32), (jnp.float16, torch.float16)):
+        got = tse3.identity_pose(td)
+        assert got.dtype == td and got.device.type == "cpu"
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jse3.identity_pose(jd)))
+    assert tse3.identity_pose(device="cpu").dtype == torch.float32
 
 
 def test_estimate_transform_identity_when_no_votes():

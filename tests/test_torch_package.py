@@ -170,3 +170,32 @@ def test_stage_times_samples_the_entry_points_own_steps():
     pipeline.run_sequence(camera, cfg, pts, apps, masks)      # outside: no new sample
     assert {k: len(v) for k, v in timer.samples.items()} == counts
     assert bool(torch.isfinite(traj).all())
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    """``profiling.trace`` writes the block's torch.profiler trace into the
+    directory, with the pipeline's ``vo/<stage>`` ranges in it; where it cannot
+    write, it raises instead of quietly writing nothing."""
+    import json
+
+    import numpy as np
+
+    from visual_odometry_tpu_torch.models import pipeline
+    from visual_odometry_tpu_torch.utils import profiling, synthetic
+    from visual_odometry_tpu_torch.utils.config import VOConfig
+
+    pts, apps, masks = (torch.from_numpy(x) for x in
+                        synthetic.generate_tracking_sequence(np.random.default_rng(0), 4, 64))
+    log_dir = tmp_path / "trace"
+    with profiling.trace(str(log_dir)):
+        pipeline.run_sequence(synthetic.deep_camera(), VOConfig(n_slots=64, map_capacity=128),
+                              pts, apps, masks)
+    (path,) = log_dir.iterdir()
+    assert path.name.endswith(".pt.trace.json")
+    names = {e.get("name") for e in json.loads(path.read_text())["traceEvents"]}
+    assert {"vo/bootstrap_init", "vo/frame_loop"} <= names
+    blocked = tmp_path / "a_file"
+    blocked.write_text("")
+    with pytest.raises(RuntimeError, match="directory"):
+        with profiling.trace(str(blocked)):
+            torch.ones(4).sum()

@@ -21,6 +21,7 @@ tenth of the JAX package's own batched-vs-serial tolerance). Map points within
 application on a generated dataset: the evaluation metrics within 2e-3.
 """
 
+import itertools
 import os
 import warnings
 
@@ -116,6 +117,50 @@ def test_bootstrap_scores_match_jax(sequence):
                            for i in (0, 1)))
     assert int(num[0]) == int(alone.num_correspondences) and int(cnt[0]) > 0
     assert float(med[0]) == float(alone.degeneracy_score)
+
+
+def _jax_auto_slack(scores, frames, chunks):
+    """The slack the JAX package's run_sequence_chunked sizes from its scores
+    (visual_odometry_tpu/parallel/posegraph.py:490-505)."""
+    good = scores[scores > 0]
+    thr = 0.4 * (np.median(good) if good.size else 0.0)
+    bad = (scores < thr).astype(np.int64)
+    run = max((len(list(g)) for k, g in itertools.groupby(bad) if k), default=0)
+    return max(8, min(run + 2, max(frames // max(chunks, 1) - 2, 4)))
+
+
+def test_plan_scores_at_default_radius(sequence):
+    """At ``match_radius=0.2`` the plan still scores the bootstrap pairs at
+    0.1, as the JAX package does: its slack and starts equal those JAX's
+    bootstrap_scores and plan_chunks give, while chunk 0's bootstrap check
+    matches at the config's radius. The appearances carry per-frame noise
+    (sigma 0.02), so the two radii match differently: scored at 0.2, the
+    same frames plan other starts."""
+    frames, chunks = 48, 3
+    p, a, m = jsyn.generate_tracking_sequence(np.random.default_rng(0), frames, S,
+                                              seed_motion=6.0)
+    a = (a + np.random.default_rng(1).normal(0, 0.02, a.shape)).astype(np.float32)
+    jscores = np.asarray(jpg.bootstrap_scores(*(jnp.asarray(x) for x in (p, a, m))))
+    jslack = _jax_auto_slack(jscores, frames, chunks)
+    want = jpg.plan_chunks(frames, chunks, OVERLAP, jscores, jslack)
+    t = _tensors((p, a, m))
+    ids = torch.full(m.shape, -1, dtype=torch.int32)
+    cfg = VOConfig(**CFG, match_radius=0.2)
+    starts, chunk_len, diag0 = tpg._plan(cfg, *t, ids, False, chunks, OVERLAP, None)
+    assert (starts, chunk_len) == want
+    scores = tpg.bootstrap_scores(*t).numpy()
+    np.testing.assert_allclose(scores, jscores, rtol=1e-4, atol=1e-6)
+    assert tpg._auto_slack(scores, frames, chunks) == jslack
+    assert tpg._auto_slack(jscores, frames, chunks) == jslack
+    at_02 = tpg.bootstrap_scores(*t, match_radius=0.2).numpy()
+    assert tpg.plan_chunks(frames, chunks, OVERLAP, at_02, jslack) != want
+    s0 = starts[0]
+    alone = tpipe.bootstrap_diagnostics(
+        cfg, *(tpipe.FrameData(*(x[i] for x in t), ids[i]) for i in (s0, s0 + 1)))
+    assert int(diag0.num_correspondences) == int(alone.num_correspondences)
+    assert float(diag0.degeneracy_score) == float(alone.degeneracy_score)
+    num_01 = tpg._pair_conditioning(*t, 0.1, "auto")[0][s0]
+    assert int(alone.num_correspondences) > int(num_01)
 
 
 def test_batched_homography_residuals_equal_single_pairs(sequence):

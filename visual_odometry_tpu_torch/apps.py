@@ -1,17 +1,36 @@
-"""Command-line applications of the port.
+"""Command-line applications of the port (the reference's executables).
 
-    python -m visual_odometry_tpu_torch.apps vo_complete <data_dir> [out_dir] [--device cuda]
-    python -m visual_odometry_tpu_torch.apps vo_se2      <data_dir> [out_dir] [--device cuda]
-    python -m visual_odometry_tpu_torch.apps vo_daknown  <data_dir> [out_dir] [--device cuda]
-    python -m visual_odometry_tpu_torch.apps relocalize  <data_dir> [out_dir] [--device cuda]
-    python -m visual_odometry_tpu_torch.apps evaluation  <data_dir> [out_dir]
+    python -m visual_odometry_tpu_torch.apps vo_complete     <data_dir> [out_dir] [--device cuda]
+    python -m visual_odometry_tpu_torch.apps vo_se2          <data_dir> [out_dir] [--device cuda]
+    python -m visual_odometry_tpu_torch.apps vo_daknown      <data_dir> [out_dir] [--device cuda]
+    python -m visual_odometry_tpu_torch.apps relocalize      <data_dir> [out_dir] [--device cuda]
+    python -m visual_odometry_tpu_torch.apps evaluation      <data_dir> [out_dir]
+    python -m visual_odometry_tpu_torch.apps real_init       <data_dir> [out_dir] [--device cuda]
+    python -m visual_odometry_tpu_torch.apps picp_known_real <data_dir> [out_dir] [--device cuda]
+    python -m visual_odometry_tpu_torch.apps compute_corr    <data_dir> [--device cuda]
+    python -m visual_odometry_tpu_torch.apps read_data_test  <data_dir>
+    python -m visual_odometry_tpu_torch.apps init            [seed] [--device cuda]
+    python -m visual_odometry_tpu_torch.apps picp_test       [seed] [--device cuda]
+    python -m visual_odometry_tpu_torch.apps whole_test      [seed] [--device cuda]
+    python -m visual_odometry_tpu_torch.apps kdtree_test     [seed] [--device cuda]
+    python -m visual_odometry_tpu_torch.apps plot            [out_dir]
+
+The commands default to the CUDA card (``--device cpu`` runs the plain
+versions on the CPU). real_init is initialization_real_data.cpp,
+picp_known_real picp_real_data_allKnown.cpp, compute_corr compute_corr.cpp,
+read_data_test read_data_test.cpp; init, picp_test, whole_test and
+kdtree_test are the synthetic tests initialization_test.cpp,
+picp_solver_test.cpp, essential_picp_test.cpp and eigen_kdtree_test.cpp;
+plot renders the figures of an output directory (utils/plots).
 
 Output-file contract of the reference (README.md:56-68 there): vo_complete
 and vo_se2 write world.txt, map.txt, map_appearances.txt, trajectory_gt.txt,
 trajectory_est_complete.txt and trajectory_est_data.txt; vo_daknown writes
 trajectory_est_noWorld.txt, trajectory_est_data.txt and time_known.txt;
 relocalize writes relocalization.txt; evaluation writes out_performance.txt,
-map_corrected.txt, arrows.txt and world_pruned.txt.
+map_corrected.txt, arrows.txt and world_pruned.txt; real_init writes
+world.txt and triangulated.txt; picp_known_real writes trajectory_est.txt;
+plot writes trajectories.png, points.png and errors.png.
 """
 
 from __future__ import annotations
@@ -28,12 +47,19 @@ from . import default_device
 from .models import pipeline, refinement
 from .models.landmark_map import compact
 from .models.refinement import absolute_from_relative
-from .ops.camera import Camera
+from .ops import epipolar, matching, pca_tree, picp, se3, triangulation
+from .ops.camera import Camera, project_points
 from .parallel import posegraph
 from .utils import evaluation as eval_mod
 from .utils import io
+from .utils import synthetic
 from .utils.config import DEFAULT_CONFIG, VOConfig
 from .utils.profiling import StageTimer
+
+
+def _device(device) -> torch.device:
+    """``device``, or the CUDA card when None (raises without one)."""
+    return torch.device(device) if device is not None else default_device()
 
 
 def _load(data_dir: str, config: VOConfig, device):
@@ -81,7 +107,7 @@ def run_vo_complete(
     Returns (trajectory (F, 4, 4) numpy, map, per-frame outputs (the chunked
     route: ``posegraph.PoseGraphDiagnostics``), seconds).
     """
-    device = torch.device(device) if device is not None else default_device()
+    device = _device(device)
     os.makedirs(out_dir, exist_ok=True)
     params, camera, seq = _load(data_dir, config, device)
     _, world_points, _ = io.load_world(os.path.join(data_dir, "world.dat"))
@@ -150,7 +176,7 @@ def run_vo_da_known(data_dir: str, out_dir: str = ".", config: Optional[VOConfig
     Returns (trajectory (F, 4, 4) numpy, per-frame outputs, seconds)."""
     if config is None:
         config = DEFAULT_CONFIG.replace(gn_iterations=1000)
-    device = torch.device(device) if device is not None else default_device()
+    device = _device(device)
     os.makedirs(out_dir, exist_ok=True)
     params, camera, seq = _load(data_dir, config, device)
     pts, apps, mask, ids = _stage(seq, device)
@@ -191,7 +217,7 @@ def run_relocalize(data_dir: str, out_dir: str = ".", config: VOConfig = DEFAULT
     previous absolute pose as prior. Writes ``relocalization.txt``: frame,
     position error against the tracked absolute pose, orientation error,
     matches, inliers. Returns those rows."""
-    device = torch.device(device) if device is not None else default_device()
+    device = _device(device)
     os.makedirs(out_dir, exist_ok=True)
     _, camera, seq = _load(data_dir, config, device)
     pts, apps, mask, ids = _stage(seq, device)
@@ -247,24 +273,273 @@ def run_evaluation(data_dir: str, out_dir: str = ".", verbose: bool = True):
     return res
 
 
-_COMMANDS = {"vo_complete": run_vo_complete, "vo_se2": run_vo_se2,
-             "vo_daknown": run_vo_da_known, "relocalize": run_relocalize}
+def run_real_init(data_dir: str, out_dir: str = ".", verbose: bool = True, device=None):
+    """Two-view initialization on the first two frames
+    (initialization_real_data.cpp): ground-truth correspondences by landmark
+    id, the 8-point estimate, the triangulation; writes world.txt and
+    triangulated.txt, both in the robot frame. Returns (the pose of camera 0
+    in camera 1 (4, 4), the triangulated points (N, 3)) as numpy."""
+    device = _device(device)
+    os.makedirs(out_dir, exist_ok=True)
+    params, camera, seq = _load(data_dir, DEFAULT_CONFIG, device)
+    _, world_points, _ = io.load_world(os.path.join(data_dir, "world.dat"))
+    io.write_vectors(os.path.join(out_dir, "world.txt"), world_points)
+    pts, apps, mask, ids = _stage(seq, device)
+    _check_bootstrap(DEFAULT_CONFIG, pts, apps, mask, ids, use_known_da=True)
+    corr = pipeline.match_by_ids(ids[0], mask[0], ids[1], mask[1])
+    x = epipolar.estimate_transform(camera.camera_matrix, corr.idx1, corr.idx2, corr.valid,
+                                    pts[0], pts[1], mask[0], mask[1])
+    tri, ok = triangulation.triangulate_correspondences(
+        camera.camera_matrix, x, corr.idx1, corr.idx2, corr.valid, pts[0], pts[1])
+    h = params.cam_in_robot
+    tri = tri[ok].cpu().numpy() @ h[:3, :3].T + h[:3, 3]
+    io.write_vectors(os.path.join(out_dir, "triangulated.txt"), tri)
+    x = x.cpu().numpy()
+    if verbose:
+        print("R estimated:\n", x[:3, :3])
+        print("t estimated:", x[:3, 3])
+        print(f"triangulated {len(tri)} points -> triangulated.txt (on {device})")
+    return x, tri
+
+
+def run_picp_known_real(data_dir: str, out_dir: str = ".", config: Optional[VOConfig] = None,
+                        verbose: bool = True, device=None):
+    """PICP alone with the world points and the association known
+    (picp_real_data_allKnown.cpp): each frame, the world is moved into the
+    previous camera (picp_real_data_allKnown.cpp:76-77), gathered by landmark
+    id and solved against the frame's measurements from the identity, up to
+    ``config.gn_iterations`` rounds (default 1000) with ``config.gn_tolerance``
+    (kernel K6 once a frame on the card). Writes trajectory_est.txt; returns
+    the poses (F, 4, 4) as numpy."""
+    if config is None:
+        config = DEFAULT_CONFIG.replace(gn_iterations=1000)
+    device = _device(device)
+    os.makedirs(out_dir, exist_ok=True)
+    params, camera, seq = _load(data_dir, config, device)
+    _, world_points, _ = io.load_world(os.path.join(data_dir, "world.dat"))
+    pts, _, mask, ids = _stage(seq, device)
+    world = torch.from_numpy(world_points).to(device)
+    x_curr = torch.from_numpy(np.linalg.inv(params.cam_in_robot).astype(np.float32)).to(device)
+    cam0 = picp.with_pose(camera, se3.identity_pose(device=device))
+
+    t0 = time.perf_counter()
+    poses = []
+    for f in range(pts.shape[0]):
+        world = se3.transform_points(x_curr, world)       # into the previous camera
+        solved, _ = picp.solve(
+            cam0, world[torch.where(mask[f], ids[f], 0).long()], pts[f],
+            mask[f].to(world.dtype), config.gn_iterations,
+            kernel_threshold=config.kernel_threshold, damping=config.damping,
+            tolerance=config.gn_tolerance)
+        x_curr = solved.world_in_camera
+        poses.append(x_curr)
+    poses = torch.stack(poses).cpu().numpy()   # waits for the device
+    elapsed = time.perf_counter() - t0
+    io.save_trajectory(os.path.join(out_dir, "trajectory_est.txt"), poses, params.cam_in_robot)
+    if verbose:
+        print(f"picp_known_real: {len(poses)} frames in {elapsed:.3f}s on {device}")
+    return poses
+
+
+def run_compute_corr(data_dir: str, verbose: bool = True, device=None):
+    """Appearance association against the landmark-id ground truth on the
+    first two frames (compute_corr.cpp:114-118; kernel K1 on the card).
+    Returns (appearance pairs, id pairs), sets of (frame-0 slot, frame-1 slot)."""
+    device = _device(device)
+    _, _, seq = _load(data_dir, DEFAULT_CONFIG, device)
+    _, apps, mask, ids = _stage(seq, device)
+    a = matching.match_appearances(apps[0], mask[0], apps[1], mask[1])
+    g = pipeline.match_by_ids(ids[0], mask[0], ids[1], mask[1])
+
+    def pairs(c):
+        i, j, v = (x.cpu().numpy() for x in c)
+        return {(int(p), int(q)) for p, q in zip(i[v], j[v])}
+
+    a_set, g_set = pairs(a), pairs(g)
+    if verbose:
+        agree = len(a_set & g_set)
+        print(f"appearance matches: {len(a_set)}, gt matches: {len(g_set)}, "
+              f"agreeing: {agree} ({100.0 * agree / max(len(g_set), 1):.1f}%)")
+    return a_set, g_set
+
+
+def run_read_data_test(data_dir: str):
+    """The dataset readers' summary (read_data_test.cpp). Returns (camera
+    parameters, the padded sequence)."""
+    params = io.load_camera_params(os.path.join(data_dir, "camera.dat"))
+    seq = io.load_sequence(data_dir, DEFAULT_CONFIG.n_slots)
+    _, world_points, _ = io.load_world(os.path.join(data_dir, "world.dat"))
+    print(f"frames: {len(seq.counts)}, meas per frame min/max: "
+          f"{seq.counts.min()}/{seq.counts.max()}")
+    print(f"world landmarks: {len(world_points)}")
+    print("camera matrix:\n", params.camera_matrix)
+    print("cam_in_robot:\n", params.cam_in_robot)
+    print(f"z_near={params.z_near} z_far={params.z_far} "
+          f"width={params.width} height={params.height}")
+    return params, seq
+
+
+def _print_comparison(x_est: np.ndarray, x_gt: np.ndarray, title: str = ""):
+    """Estimated against true pose, as initialization_test.cpp:27-40 prints them."""
+    if title:
+        print(title)
+    print("R estimated:\n", x_est[:3, :3])
+    print("R gt:\n", x_gt[:3, :3])
+    print("t ratio:", ", ".join(f"{r:g}" for r in x_est[:3, 3] / x_gt[:3, 3]))
+
+
+def run_init_synthetic(seed: int = 0, num_points: int = 1000, verbose: bool = True,
+                       device=None):
+    """The 8-point initialization on a synthetic two-view scene
+    (initialization_test.cpp:41-89): ``num_points`` random points, two random
+    cameras, identity correspondences. A constant per-axis t ratio is the
+    right direction (the monocular scale is free). Returns (estimate, truth)
+    (4, 4) numpy."""
+    device = _device(device)
+    _, _, _, p1, p2, corr_valid, x_gt = synthetic.two_view_scene(
+        np.random.default_rng(seed), num_points)
+    cam = synthetic.default_camera(device=device)
+    idx = torch.arange(num_points, dtype=torch.int32, device=device)
+    valid = torch.from_numpy(corr_valid).to(device)
+    x = epipolar.estimate_transform(
+        cam.camera_matrix, idx, idx, valid, torch.from_numpy(p1).to(device),
+        torch.from_numpy(p2).to(device), valid, valid).cpu().numpy()
+    if verbose:
+        _print_comparison(x, x_gt, f"epipolar init (on {device})")
+    return x, x_gt
+
+
+def run_picp_synthetic(seed: int = 0, num_points: int = 1000, iterations: int = 1000,
+                       verbose: bool = True, device=None):
+    """PICP alone on a synthetic scene (picp_solver_test.cpp:42-79): known world
+    points, measurements projected under a random true pose, the solve from
+    the identity with kernel threshold 10000 for exactly ``iterations`` rounds
+    (kernel K6 on the card). Returns (estimate, truth) (4, 4) numpy."""
+    device = _device(device)
+    rng = np.random.default_rng(seed)
+    x_gt = synthetic.generate_pose(rng)
+    world = torch.from_numpy(synthetic.generate_points3d(rng, num_points)).to(device)
+    _, v_ref = project_points(synthetic.default_camera(device=device), world)
+    p_cur, v_cur = project_points(synthetic.default_camera(x_gt, device=device), world)
+    weights = (v_ref & v_cur).to(torch.float32)
+    cam0 = synthetic.default_camera(np.eye(4, dtype=np.float32), device=device)
+    solved, stats = picp.solve(cam0, world, p_cur, weights, iterations, kernel_threshold=10000.0)
+    x_est = solved.world_in_camera.cpu().numpy()
+    if verbose:
+        _print_comparison(x_est, x_gt, f"PICP solver (on {device})")
+        print(f"inliers: {int(stats.num_inliers)}  chi inliers: {float(stats.chi_inliers):g}")
+    return x_est, x_gt
+
+
+def run_whole_synthetic(seed: int = 0, num_points: int = 1000, verbose: bool = True,
+                        device=None):
+    """The composed synthetic check (essential_picp_test.cpp:45-106): three
+    random views; the 8-point init between views 1 and 2, triangulation, then
+    PICP of the triangulated points against view 3 for 1000 rounds (kernel
+    K6 on the card). The truth of that solve is the scale-free ``w3 w2^-1``.
+    Returns (estimate, truth) (4, 4) numpy."""
+    device = _device(device)
+    rng = np.random.default_rng(seed)
+    world = torch.from_numpy(synthetic.generate_points3d(rng, num_points)).to(device)
+    w1, w2, w3 = (synthetic.generate_pose(rng) for _ in range(3))
+    cam = synthetic.default_camera(device=device)
+    (p1, v1), (p2, v2), (p3, v3) = (
+        project_points(synthetic.default_camera(w, device=device), world) for w in (w1, w2, w3))
+    idx = torch.arange(num_points, dtype=torch.int32, device=device)
+    corr12 = v1 & v2
+    x12 = epipolar.estimate_transform(cam.camera_matrix, idx, idx, corr12, p1, p2, v1, v2)
+    if verbose:
+        _print_comparison(x12.cpu().numpy(), (w2 @ np.linalg.inv(w1)).astype(np.float32),
+                          f"init (view 1 in view 2, on {device})")
+    tri, ok = triangulation.triangulate_correspondences(cam.camera_matrix, x12, idx, idx,
+                                                        corr12, p1, p2)
+    weights = (ok & v3).to(torch.float32)
+    cam0 = synthetic.default_camera(np.eye(4, dtype=np.float32), device=device)
+    solved, stats = picp.solve(cam0, se3.transform_points(x12, tri), p3, weights, 1000,
+                               kernel_threshold=10000.0)
+    x23_est = solved.world_in_camera.cpu().numpy()
+    x23_gt = (w3 @ np.linalg.inv(w2)).astype(np.float32)
+    if verbose:
+        print(f"triangulated in front: {int(ok.sum())}")
+        _print_comparison(x23_est, x23_gt, "PICP (view 2 in view 3)")
+        print(f"inliers: {int(stats.num_inliers)}")
+    return x23_est, x23_gt
+
+
+def run_kdtree_test(seed: int = 0, num_points: int = 500, verbose: bool = True, device=None):
+    """The tree's one-sided best match against the exact dense search, per
+    query (eigen_kdtree_test.cpp:42-67): ``num_points`` random points, the
+    queries those points plus N(0, 0.1) noise, radius 0.5, depth
+    log2(N / 10). Prints the FAST Correct tally; returns the per-query
+    agreement (N,) bool numpy."""
+    device = _device(device)
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-10.0, 10.0, (num_points, 3)).astype(np.float32)
+    queries = (pts + rng.normal(0, 0.1, pts.shape)).astype(np.float32)
+    mask = torch.ones(num_points, dtype=torch.bool, device=device)
+    db, q = torch.from_numpy(pts).to(device), torch.from_numpy(queries).to(device)
+
+    levels = max(1, int(np.log2(max(num_points / 10.0, 2.0))))
+    tree = pca_tree.build_tree(db, mask, levels=levels)
+    idx_fast, found_fast = pca_tree.best_match_fast(tree, db, q, mask, radius=0.5)
+    d = matching.pairwise_sq_dists(q, db).cpu().numpy()
+    exact_idx, exact_found = d.argmin(1), d.min(1) < 0.5 ** 2
+    fast_idx, fast_found = idx_fast.cpu().numpy(), found_fast.cpu().numpy()
+    correct = (fast_found == exact_found) & (~exact_found | (fast_idx == exact_idx))
+    if verbose:
+        print(f"FAST Correct: {int(correct.sum())}/{num_points} "
+              f"(exact matches: {int(exact_found.sum())}, tree depth {levels}, on {device})")
+        for i in np.flatnonzero(~correct)[:10]:
+            print(f"FAST Not Correct: query {i}: fast="
+                  f"{fast_idx[i] if fast_found[i] else 'NONE'} "
+                  f"full={exact_idx[i] if exact_found[i] else 'NONE'}")
+    return correct
+
+
+# command -> (application, its positional arguments as "data" (<data_dir> [out_dir]),
+# "data_only" (<data_dir>), "seed" ([seed]) or "out" ([out_dir]), takes --device)
+_COMMANDS = {
+    "vo_complete": (run_vo_complete, "data", True),
+    "vo_se2": (run_vo_se2, "data", True),
+    "vo_daknown": (run_vo_da_known, "data", True),
+    "relocalize": (run_relocalize, "data", True),
+    "evaluation": (run_evaluation, "data", False),
+    "real_init": (run_real_init, "data", True),
+    "picp_known_real": (run_picp_known_real, "data", True),
+    "compute_corr": (run_compute_corr, "data_only", True),
+    "read_data_test": (run_read_data_test, "data_only", False),
+    "init": (run_init_synthetic, "seed", True),
+    "picp_test": (run_picp_synthetic, "seed", True),
+    "whole_test": (run_whole_synthetic, "seed", True),
+    "kdtree_test": (run_kdtree_test, "seed", True),
+    "plot": (None, "out", False),
+}
+_ARITY = {"data": (1, 2), "data_only": (1, 1), "seed": (0, 1), "out": (0, 1)}
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m visual_odometry_tpu_torch.apps",
                                 description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("command", choices=tuple(_COMMANDS) + ("evaluation",))
-    p.add_argument("data_dir")
-    p.add_argument("out_dir", nargs="?", default=".")
+    p.add_argument("command", choices=tuple(_COMMANDS))
+    p.add_argument("args", nargs="*", help="<data_dir> [out_dir], [seed] or [out_dir]")
     p.add_argument("--device", default=None,
-                   help="torch device of the tracking commands (default: cuda, which must exist)")
+                   help="torch device of the computing commands (default: cuda, which must exist)")
     a = p.parse_args(argv)
-    if a.command == "evaluation":
-        run_evaluation(a.data_dir, a.out_dir)
+    fn, kind, on_device = _COMMANDS[a.command]
+    lo, hi = _ARITY[kind]
+    if not lo <= len(a.args) <= hi:
+        p.error(f"{a.command} takes {lo} to {hi} positional arguments, got {len(a.args)}")
+    kw = {"device": a.device} if on_device else {}
+    if kind == "seed":
+        fn(seed=int(a.args[0]) if a.args else 0, **kw)
+    elif kind == "out":
+        from .utils import plots
+
+        for path in plots.plot_all(a.args[0] if a.args else "."):
+            print(f"wrote {path}")
     else:
-        _COMMANDS[a.command](a.data_dir, a.out_dir, device=a.device)
+        fn(*a.args, **kw)
     return 0
 
 

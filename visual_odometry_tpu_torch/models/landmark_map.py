@@ -14,6 +14,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..ops import se3
+
 
 class LandmarkMap(NamedTuple):
     points: torch.Tensor       # (C, 3)
@@ -62,6 +64,11 @@ def update(map_state: LandmarkMap, points, appearances, mask) -> LandmarkMap:
         valid=new_valid,
         count=map_state.count + keep.sum().to(torch.int32),
     )
+
+
+def transform(map_state: LandmarkMap, pose: torch.Tensor) -> LandmarkMap:
+    """Apply an isometry to every point (PointCloud.h:77-82); appearances kept."""
+    return map_state._replace(points=se3.transform_points(pose, map_state.points))
 
 
 def compact(map_state: LandmarkMap) -> Tuple[np.ndarray, np.ndarray]:

@@ -25,6 +25,12 @@ import torch
 from . import se3, triangulation
 
 
+def transform_to_essential(x_1_in_2: torch.Tensor) -> torch.Tensor:
+    """Ground-truth essential matrix ``E = R^T skew(t)`` of a relative pose
+    (``transform2essential``, epipolar_utils.cpp:3-7)."""
+    return se3.rot(x_1_in_2).transpose(-1, -2) @ se3.skew(se3.trans(x_1_in_2))
+
+
 def normalize_points(points: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scale pixel coords into [-1, 1] per axis; returns (normalized, T)."""
     masked = torch.where(mask[..., None], points, torch.zeros_like(points))
@@ -79,6 +85,39 @@ def _null_vector(ata: torch.Tensor, iters: int = 3) -> torch.Tensor:
     return torch.where(torch.isfinite(v).all(dim=-1, keepdim=True), v, v0)
 
 
+def normalize_points_gauss(points: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whitening normalization of one frame's (N, 2) points; returns (p, T)
+    (``normalizeGauss``, epipolar_utils.cpp:67-101). Mean and 1/(n-1)
+    covariance over the live points, ``T = [[L^-1, -L^-1 mu], [0, 1]]`` with
+    ``L`` the covariance's lower Cholesky factor; live points map to
+    ``L^-1 (p - mu)``, masked slots pass through. A degenerate covariance
+    (fewer than 2 points, or collinear ones) gives the identity transform."""
+    m = mask.to(points.dtype)
+    n = m.sum()
+    mu = (points * m[:, None]).sum(dim=0) / torch.clamp_min(n, 1.0)
+    c = (points - mu) * m[:, None]
+    sigma = (c.T @ c) / torch.clamp_min(n - 1.0, 1.0)
+    a, b, d = sigma[0, 0], sigma[1, 0], sigma[1, 1]
+    one = torch.ones_like(a)
+    ok = (n >= 2.0) & (a > 0.0)
+    l00 = torch.sqrt(torch.where(ok, a, one))       # the 2x2 Cholesky in closed form
+    l10 = b / l00
+    s22 = d - l10 * l10
+    ok = ok & (s22 > 0.0)
+    l11 = torch.sqrt(torch.where(ok, s22, one))
+    i00, i11 = 1.0 / l00, 1.0 / l11
+    inv_l = torch.stack([torch.stack([i00, torch.zeros_like(i00)]),
+                         torch.stack([-l10 * i00 * i11, i11])])
+    eye2 = torch.eye(2, dtype=points.dtype, device=points.device)
+    w = torch.where(ok, inv_l, eye2)
+    shift = torch.where(ok, -(w @ mu), torch.zeros_like(mu))
+    t = torch.eye(3, dtype=points.dtype, device=points.device)
+    t[:2, :2] = w
+    t[:2, 2] = shift
+    whitened = points @ w.T + shift
+    return torch.where(mask[:, None], whitened, points), t
+
+
 def _design_rows(d1: torch.Tensor, d2: torch.Tensor, corr_valid: torch.Tensor) -> torch.Tensor:
     rows = (d1[..., :, None] * d2[..., None, :]).reshape(d1.shape[:-1] + (9,))
     return torch.where(corr_valid[..., None], rows, torch.zeros_like(rows))
@@ -98,6 +137,22 @@ def estimate_fundamental(idx1, idx2, corr_valid, p1_img, p2_img, mask1, mask2) -
     s = torch.cat([s[:2], torch.zeros_like(s[2:])])
     f = (u * s) @ vt
     return t1.T @ f @ t2
+
+
+def estimate_essential(camera_matrix, idx1, idx2, corr_valid, p1_img, p2_img) -> torch.Tensor:
+    """Direct essential matrix (3, 3) from calibrated rays (``estimate_essential``,
+    epipolar_utils.cpp:9-46, unused by the reference's pipeline): design rows
+    ``vec(d1 d2^T)`` of ``d = K^-1 [p; 1]`` over the valid correspondences, E
+    the null vector of the 9x9 normal matrix, taken in float64 as in
+    :func:`estimate_fundamental`; no rank-2 constraint, as in the reference.
+    Its sign and scale are arbitrary. Callers check the correspondence count
+    (the reference aborts below 8)."""
+    ik = torch.linalg.inv(camera_matrix)
+    ones = torch.ones(idx1.shape + (1,), dtype=p1_img.dtype, device=p1_img.device)
+    d1 = torch.cat([p1_img[idx1.long()], ones], -1) @ ik.T
+    d2 = torch.cat([p2_img[idx2.long()], ones], -1) @ ik.T
+    rows = _design_rows(d1, d2, corr_valid).double()
+    return _null_vector(rows.T @ rows).to(p1_img.dtype).reshape(3, 3)
 
 
 def essential_to_transform_pair(e: torch.Tensor):

@@ -17,7 +17,7 @@ import torch
 
 from ..utils.config import MATCHER_PRECISIONS
 from .kernels import matcher_kernel
-from .kernels.matcher_kernel import pairwise_sq_dists  # noqa: F401  (public re-export)
+from .kernels.matcher_kernel import pairwise_sq_dists
 
 
 class Correspondences(NamedTuple):
@@ -47,6 +47,16 @@ def best_match(queries, q_mask, db, db_mask, backend: str = "auto",
         queries.contiguous(), q_mask.contiguous(), db.contiguous(), db_mask.contiguous(),
         backend=backend, fast=precision == "fast",
     )
+
+
+def radius_search(queries, q_mask, db, db_mask, radius: float = 0.1) -> torch.Tensor:
+    """Every match within the radius as a dense (Q, K) bool matrix, the kd-tree
+    radius queries (eigen_kdtree.h:54-70, brute_force_search.h:3-20): entry
+    (q, k) is True iff both slots are live and ``||a_q - b_k||^2 < radius^2``
+    (strict, as the reference's ``< squared_norm``)."""
+    d = pairwise_sq_dists(queries, db)
+    r2 = torch.tensor(radius, dtype=d.dtype, device=d.device) ** 2
+    return (d < r2) & q_mask[:, None] & db_mask[None, :]
 
 
 def match_appearances_batch(app1, mask1, app2, mask2, radius: float = 0.1,

@@ -54,6 +54,11 @@ def v2t_euler(v: torch.Tensor) -> torch.Tensor:
     return pose_from_rt(euler_to_rotation(v[..., 3:]), v[..., :3])
 
 
+def identity_pose(dtype=torch.float32, device=None) -> torch.Tensor:
+    """The (4, 4) identity transform."""
+    return torch.eye(4, dtype=dtype, device=device)
+
+
 def rot(pose: torch.Tensor) -> torch.Tensor:
     return pose[..., :3, :3]
 

@@ -25,10 +25,11 @@ folded as the serial pipeline folds it: every chunk's triangulations,
 rescaled into the global scale and moved into frame-0 coordinates by the
 stitched chains, go through ONE ``merge_stream`` pass in observation order.
 
-Departures from the JAX module: the bootstrap scores match with the config's
-``match_radius`` and ``matcher_backend`` (JAX always takes the default
-radius, 0.1, which is also the config's default); their pass also gives chunk
-0's bootstrap check, which then launches no matcher of its own. The chain
+The bootstrap scores match at radius 0.1 whatever ``config.match_radius``
+is, as the JAX module's do; they route the pair matcher by the config's
+``matcher_backend``. When the config's radius is 0.1 too, their pass also
+gives chunk 0's bootstrap check, which then launches no matcher of its own;
+otherwise the check matches its pair at the config's radius. The chain
 products are ``se3.chain_products`` (JAX: ``associative_scan``). ``mesh`` and
 ``sp_axis`` stay in the signature; sharding the chunks over several cards is
 not ported and a mesh raises ``NotImplementedError``.
@@ -58,6 +59,9 @@ _MOTION_FRACTION = 0.2
 # Absolute translation-norm floor for a pose to count as "moving" in the
 # scale-ratio fallback: converged-GN noise on stationary frames is ~1e-7.
 _MIN_MOTION = 1e-4
+# The radius the bootstrap scores match at, whatever the config's (JAX:
+# bootstrap_scores' default).
+SCORE_RADIUS = 0.1
 
 
 class StitchError(RuntimeError):
@@ -151,7 +155,7 @@ def bootstrap_scores(
     points: torch.Tensor,        # (F, S, 2)
     appearances: torch.Tensor,   # (F, S, D)
     masks: torch.Tensor,         # (F, S)
-    match_radius: float = 0.1,
+    match_radius: float = SCORE_RADIUS,
     backend: str = "auto",
 ) -> torch.Tensor:
     """Two-view bootstrap-conditioning score per consecutive frame pair (F-1,).
@@ -354,6 +358,17 @@ def refine_stitched(
     return torch.from_numpy(rel).to(dev, points.dtype), refined
 
 
+def _auto_slack(scores: np.ndarray, num_frames: int, num_chunks: int) -> int:
+    """A chunk's start window must be able to escape any degenerate
+    (stationary / pure-rotation) segment: the slack is the longest
+    below-threshold score run plus 2, floored at 8."""
+    good = scores[scores > 0]
+    thr = 0.4 * (np.median(good) if good.size else 0.0)
+    bad = (scores < thr).astype(np.int64)
+    run = max((len(list(g)) for k, g in itertools.groupby(bad) if k), default=0)
+    return max(8, min(run + 2, max(num_frames // max(num_chunks, 1) - 2, 4)))
+
+
 def _plan(config: VOConfig, points, appearances, masks, ids, use_known_da: bool,
           num_chunks: int, overlap: int, slack: Optional[int]):
     """run_sequence_chunked's plan: (chunk starts, chunk length, chunk 0's
@@ -363,21 +378,14 @@ def _plan(config: VOConfig, points, appearances, masks, ids, use_known_da: bool,
     pairs = scores = None
     if slack is None or slack > 0:
         with stage("bootstrap_scores"):
-            pairs = _pair_conditioning(points, appearances, masks, config.match_radius,
+            pairs = _pair_conditioning(points, appearances, masks, SCORE_RADIUS,
                                        config.matcher_backend)
             scores = _scores(pairs).cpu().numpy()
     if slack is None:
-        # A chunk's start window must be able to escape any degenerate
-        # (stationary / pure-rotation) segment: size the slack to the
-        # longest below-threshold score run, floored at 8.
-        good = scores[scores > 0]
-        thr = 0.4 * (np.median(good) if good.size else 0.0)
-        bad = (scores < thr).astype(np.int64)
-        run = max((len(list(g)) for k, g in itertools.groupby(bad) if k), default=0)
-        slack = max(8, min(run + 2, max(f // max(num_chunks, 1) - 2, 4)))
+        slack = _auto_slack(scores, f, num_chunks)
     starts, chunk_len = plan_chunks(f, num_chunks, overlap, scores, slack)
     s0 = starts[0]
-    if pairs is not None and not use_known_da:
+    if pairs is not None and not use_known_da and config.match_radius == SCORE_RADIUS:
         # The scores' pass matched chunk 0's pair as check_bootstrap would.
         num, med, cnt = (x[s0] for x in pairs)
         diag0 = pipeline.BootstrapDiagnostics(
@@ -446,8 +454,8 @@ def run_sequence_chunked(
         if points.shape[1] != config.n_slots:
             raise ValueError(f"frames have {points.shape[1]} slots, "
                              f"config.n_slots={config.n_slots}")
-        starts, chunk_len, diag0 = _plan(config, points, appearances, masks, ids, use_known_da,
-                                         num_chunks, overlap, slack)
+        starts, chunk_len, diag0 = _plan(config, points, appearances, masks, ids,
+                                         use_known_da, num_chunks, overlap, slack)
         # Chunk 0's bootstrap anchors the whole trajectory at frame 0: the
         # serial path's < 8-correspondence hard error (epipolar_utils.cpp:
         # 104-108) holds for it. Later chunks' bootstraps only seed their

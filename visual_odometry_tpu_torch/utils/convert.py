@@ -167,3 +167,14 @@ def ba_solution_to_arrays(problem) -> dict:
     and landmarks (L, 3), what a test holds against the JAX package's step."""
     return dict(poses=problem.poses.detach().cpu().numpy(),
                 landmarks=problem.landmarks.detach().cpu().numpy())
+
+
+def pca_tree_from_arrays(axes, thresholds, codes, levels: int, device="cpu"):
+    """An ``ops.pca_tree.PCATree`` from the numpy fields of the JAX package's
+    (``**tree._asdict()``): the same split planes and leaf codes, so both
+    packages' queries can run on one tree."""
+    from ..ops.pca_tree import PCATree
+
+    return PCATree(axes=_t(axes, torch.float32, device),
+                   thresholds=_t(thresholds, torch.float32, device),
+                   codes=_t(codes, torch.int32, device), levels=int(levels))

@@ -5,11 +5,14 @@ Writes ``meas-XXXXX.dat``, ``world.dat``, ``camera.dat`` and
 ``trajectory.dat``: a robot driving a planar arc with the camera looking out
 through the standard cam-in-robot transform, landmarks carrying unique random
 appearance vectors observed verbatim.
+
+    python -m visual_odometry_tpu_torch.utils.dataset_gen <out_dir> [--frames F] [--landmarks L] [--seed S]
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -100,3 +103,22 @@ def generate_dataset(
                 f.write(f"point {n} {j} {vals}\n")
                 n += 1
 
+
+def main(argv: Optional[list] = None) -> int:
+    """The generator's command line: ``<out_dir> [--frames] [--landmarks] [--seed]``."""
+    import argparse
+
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("out_dir")
+    p.add_argument("--frames", type=int, default=60)
+    p.add_argument("--landmarks", type=int, default=500)
+    p.add_argument("--seed", type=int, default=0)
+    a = p.parse_args(argv)
+    generate_dataset(a.out_dir, a.frames, a.landmarks, a.seed)
+    print(f"wrote synthetic dataset to {a.out_dir}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

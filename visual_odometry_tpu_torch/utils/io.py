@@ -19,15 +19,19 @@ directions (a trajectory we write can be consumed by the reference
     5-7.
 
 On top of the raw readers this module provides the pad-to-static-shape
-loaders that feed the pipeline. The JAX package's native C++ parser
-(``visual_odometry_tpu/native``) is not ported yet; its output is identical
-to these readers'.
+loaders that feed the pipeline. The tables are parsed by the C++ parser of
+``native/`` (built with ``g++`` at first use) when it builds; when it does
+not, one warning carries the compiler's output and ``numpy.loadtxt`` parses.
+``load_sequence`` takes the choice as ``parser``: ``"auto"`` (that default),
+``"native"`` (a failed build raises) or ``"numpy"``. Both parsers give
+identical arrays.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import warnings
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -65,7 +69,11 @@ def list_measurement_files(path: str) -> List[str]:
 
 def load_measurements(file_path: str) -> Frame:
     """Parse one ``meas-XXXXX.dat``."""
-    data = _parse_table(file_path, skiprows=3, first_col=1, n_cols=14)
+    return _measurements(file_path, "auto")
+
+
+def _measurements(file_path: str, parser: str) -> Frame:
+    data = _parse_table(file_path, 3, 1, 14, parser)
     return Frame(
         ids=data[:, 1].astype(np.int32),
         points=data[:, 2:4].astype(np.float32),
@@ -75,7 +83,7 @@ def load_measurements(file_path: str) -> Frame:
 
 def load_world(file_path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Parse ``world.dat`` -> (ids (N,), points (N, 3), appearances (N, 10))."""
-    data = _parse_table(file_path, skiprows=0, first_col=0, n_cols=14)
+    data = _parse_table(file_path, 0, 0, 14, "auto")
     return (
         data[:, 0].astype(np.int32),
         data[:, 1:4].astype(np.float32),
@@ -83,7 +91,38 @@ def load_world(file_path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     )
 
 
-def _parse_table(file_path, skiprows, first_col, n_cols):
+PARSERS = ("auto", "native", "numpy")
+
+
+def _native(parser: str):
+    """The native parser's module if ``parser`` takes it, else None: for
+    "native" it must build (NativeBuildFailure otherwise); for "auto" a failed
+    build warns, with the compiler's output, and numpy parses."""
+    if parser not in PARSERS:
+        raise ValueError(f"parser={parser!r}; expected one of {PARSERS}")
+    if parser == "numpy":
+        return None
+    from ..native import dataloader
+
+    try:
+        dataloader.library()
+    except dataloader.NativeBuildFailure as e:
+        if parser == "native":
+            raise
+        warnings.warn(f"the native dataset parser is unavailable, parsing with numpy: {e}",
+                      RuntimeWarning, stacklevel=3)
+        return None
+    return dataloader
+
+
+def _parse_table(file_path, skiprows, first_col, n_cols, parser):
+    native = _native(parser)
+    if native is not None:
+        out = native.parse_table(file_path, skiprows, first_col, n_cols)
+        if out is not None:
+            return out
+        if parser == "native":
+            raise OSError(f"the native parser cannot read {file_path}")
     return np.loadtxt(
         file_path,
         skiprows=skiprows,
@@ -196,10 +235,23 @@ def pad_frames(frames: List[Frame], n_slots: Optional[int] = None) -> PaddedSequ
     return PaddedSequence(points=points, appearances=apps, ids=ids, mask=mask, counts=counts)
 
 
-def load_sequence(data_dir: str, n_slots: Optional[int] = None) -> PaddedSequence:
-    """Load + pad a whole measurement sequence."""
+def load_sequence(data_dir: str, n_slots: Optional[int] = None,
+                  parser: str = "auto") -> PaddedSequence:
+    """Load + pad a whole measurement sequence. The native parser reads and
+    pads every frame in one call on a pool of threads; numpy reads the files
+    one by one and pads them (``pad_frames``)."""
+    native = _native(parser)
+    if native is not None:
+        out = native.load_sequence_native(data_dir, n_slots, PAD_APPEARANCE)
+        if out is not None:
+            points, apps, ids, mask, counts = out
+            return PaddedSequence(points=points, appearances=apps, ids=ids, mask=mask,
+                                  counts=counts)
+        if parser == "native":
+            raise ValueError(f"the native parser cannot load {data_dir}: a file it cannot "
+                             f"read, no meas-*.dat, or a frame over n_slots={n_slots}")
     files = list_measurement_files(data_dir)
-    frames = [load_measurements(os.path.join(data_dir, f)) for f in files]
+    frames = [_measurements(os.path.join(data_dir, f), "numpy") for f in files]
     return pad_frames(frames, n_slots)
 
 

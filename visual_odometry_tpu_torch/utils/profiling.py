@@ -1,5 +1,5 @@
-"""Per-stage wall-clock timing (the ``StageTimer`` of
-visual_odometry_tpu.utils.profiling; the rest of that module is not ported).
+"""Per-stage wall-clock timing and device traces (port of
+visual_odometry_tpu.utils.profiling).
 
 The reference times its data-association stage per frame into
 ``time_known.txt`` (vo_daKnown.cpp:127-129, 163-164); :meth:`StageTimer.dump`
@@ -8,6 +8,7 @@ writes that file.
 The pipeline's entry points wrap their own steps in :func:`stage`, so a
 ``torch.profiler`` trace shows them as ``vo/<name>`` ranges, and a caller that
 wants their times runs the entry points inside :func:`stage_times`.
+:func:`trace` writes a ``torch.profiler`` trace of a block.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import time
 from collections import defaultdict
 from typing import Dict, Iterator, List, Optional
 
-from torch.profiler import record_function
+from torch.profiler import profile, record_function, supported_activities, tensorboard_trace_handler
 
 from .timing import sync
 
@@ -92,3 +93,16 @@ def stage_times() -> Iterator[StageTimer]:
         yield timer
     finally:
         _collecting = previous
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[None]:
+    """A ``torch.profiler`` trace of the block (host, and the card where there
+    is one), written into ``log_dir`` as a Chrome trace
+    (``<host>_<pid>.<time>.pt.trace.json``, which TensorBoard and Perfetto
+    read). The JAX package's ``trace`` silently does nothing when tracing
+    fails; this one raises, so that a trace the caller asked for is never
+    quietly missing."""
+    with profile(activities=supported_activities(),
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield

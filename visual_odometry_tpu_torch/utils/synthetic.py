@@ -18,6 +18,31 @@ from ..ops.camera import Camera, project_points
 _K = np.array([[180.0, 0.0, 320.0], [0.0, 180.0, 240.0], [0.0, 0.0, 1.0]], np.float32)
 
 
+def generate_pose(rng: np.random.Generator) -> np.ndarray:
+    """Random rigid transform (4, 4) float32: uniform(-1, 1) axis-angle and
+    translation (``generate_isometry3f``, utils.cpp:8-20)."""
+    axis = rng.uniform(-1.0, 1.0, 3)
+    axis /= np.linalg.norm(axis)
+    angle = rng.uniform(-1.0, 1.0)
+    k = np.array(
+        [[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]],
+        np.float32,
+    )
+    r = np.eye(3, dtype=np.float32) + np.sin(angle) * k + (1 - np.cos(angle)) * (k @ k)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = r
+    pose[:3, 3] = rng.uniform(-1.0, 1.0, 3)
+    return pose
+
+
+def generate_points3d(rng: np.random.Generator, num_points: int) -> np.ndarray:
+    """Random world points (N, 3) float32: x, y ~ U(-10, 10), z ~ U(-10, 10)
+    * 0.1 + 1 (``generate_points3d``, utils.cpp:22-34)."""
+    p = rng.uniform(-10.0, 10.0, (num_points, 3)).astype(np.float32)
+    p[:, 2] = p[:, 2] * 0.1 + 1.0
+    return p
+
+
 def generate_appearances(rng: np.random.Generator, num_points: int, dim: int = 10) -> np.ndarray:
     """Unique random appearance descriptors (the dataset's landmark keys)."""
     return rng.uniform(-1.0, 1.0, (num_points, dim)).astype(np.float32)
@@ -78,6 +103,26 @@ def generate_tracking_sequence(
         pts.append(uv.numpy())
         masks.append(valid.numpy())
     return np.stack(pts), np.tile(apps[None], (num_frames, 1, 1)), np.stack(masks)
+
+
+def two_view_scene(rng: np.random.Generator, num_points: int = 1000):
+    """World points seen from two random cameras, with identity correspondences.
+
+    Returns (world, w1, w2, p1, p2, corr_valid, x_1_in_2) as numpy arrays:
+    w1/w2 the world_in_camera poses, p1/p2 the (N, 2) projections through
+    :func:`default_camera` ((-1, -1) where invalid), corr_valid the
+    both-views-valid mask (``computeFakeCorrespondences``), and
+    x_1_in_2 = w2 @ w1^-1 the ground-truth relative pose
+    (essential_picp_test.cpp:103)."""
+    world = generate_points3d(rng, num_points)
+    w1 = generate_pose(rng)
+    w2 = generate_pose(rng)
+    world_t = torch.from_numpy(world)
+    p1, v1 = project_points(default_camera(w1), world_t)
+    p2, v2 = project_points(default_camera(w2), world_t)
+    corr_valid = v1.numpy() & v2.numpy()
+    x_1_in_2 = (w2 @ np.linalg.inv(w1)).astype(np.float32)
+    return world, w1, w2, p1.numpy(), p2.numpy(), corr_valid, x_1_in_2
 
 
 def generate_ba_corridor(
