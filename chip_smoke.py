@@ -34,7 +34,15 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      ms; K6 and K11 rows carry them too, with their launch geometry, GN
      rounds and device us a round (K6), and the launch floor (a one-float
      fill's times) beside the bound;
-     K11 linearization at N = 1024 and 8192, twice bit for bit alike;
+     K11 linearization at N = 1024 and 8192, twice bit for bit alike; every
+     row's bound_ms and bound_by come from a utils/roofline work model at
+     the row's shapes (and GN rounds) against this card's spec;
+  3b. utils/selfcheck.run_all's eight checks on the card, each with its
+     kernels' launches ({"selfcheck": ...}), then utils/roofline.measure()
+     (K7 exact, K6 at 100 rounds, K4 at 10 rounds a frame) and
+     measure_sparse_ba() (one packed LM step at 512 poses x 100,000
+     landmarks, 64 CG iterations) with the card's spec and launch floor
+     ({"roofline": ...}); every roofline fraction and mfu in (0, 1];
   4. path A: the reference-format applications — generate_dataset (40 frames,
      400 landmarks), apps.run_vo_complete (also with num_chunks=2), run_vo_se2,
      run_vo_da_known and
@@ -156,15 +164,6 @@ CHUNK_RATIO_TOL = 0.05   # each frame's translation ratio to serial path B, abou
 BA_POSES, BA_LANDMARKS, BA_STEPS, BA_CG = 512, 100_000, 3, 64
 MOUNT_V = (0.05, -0.1, 0.02, 0.01, -0.02, 0.015)   # a non-identity camera mount, Euler chart
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate,
-# float32 outside the tensor cores, bfloat16 in them.
-PEAK_BYTES_S, PEAK_FP32, PEAK_BF16 = 3.35e12, 67e12, 989e12
-# Float operations of one lane in one GN round (projection, robust kernel,
-# Jacobian, the 30 or 12 products and their share of the block sum) and in one
-# frame's join and triangulation, counted from csrc/gn_loop.cuh and
-# csrc/track_frames.cu.
-ROUND_FLOPS = {False: 240, True: 180}
-FRAME_FLOPS = 130
 
 
 class SmokeFailure(RuntimeError):
@@ -197,55 +196,8 @@ def time_ms(fn, device, reps: int, warmup: int = 1) -> float:
     return statistics.median(timed_call(fn, device)[1] for _ in range(reps))
 
 
-def device_events(prof):
-    """A profile's device events, the device-side spans of ``vo/`` ranges and
-    of the profiler's own steps left out."""
-    from torch.autograd import DeviceType
-
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not e.name.startswith(("vo/", "ProfilerStep"))]
-
-
-def launch_times(fn, device, reps: int) -> dict:
-    """One call of ``fn``, which launches one kernel, three ways: ``ms``, CUDA
-    events around it (median); ``device_ms``, the profiler's mean device
-    time of the kernels it saw in ``reps`` calls; ``host_ms``, the host clock
-    around it with no sync (median)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    ms = time_ms(fn, device, reps)
-    host = []
-    for _ in range(reps):
-        sync(device)
-        t0 = time.perf_counter()
-        fn()
-        host.append(time.perf_counter() - t0)
-    sync(device)
-    # The profiler drops some device events of a short window (5 of 50, and
-    # once all of them, in runs on the H100): the mean is taken over the
-    # kernels it saw, and a window that shows fewer than half is profiled
-    # again, at most thrice.
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            sync(device)
-        on_card = device_events(prof)
-        if 2 * len(on_card) >= reps:
-            break
-    require(2 * len(on_card) >= reps,
-            f"launch_times: the profiler saw {len(on_card)} kernels of {reps} calls")
-    busy_us = sum(e.time_range.elapsed_us() for e in on_card)
-    return dict(ms=ms, device_ms=busy_us / 1e3 / len(on_card),
-                host_ms=1e3 * statistics.median(host))
-
-
 def prefixed(prefix: str, row: dict) -> dict:
     return {prefix + k: v for k, v in row.items()}
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def same_bits(*pairs) -> bool:
@@ -256,10 +208,14 @@ def same_bits(*pairs) -> bool:
                for a, b in pairs)
 
 
-def bound(bytes_moved: float, ops: float, peak_ops: float = PEAK_FP32):
-    """(least time in ms the card could take, "bytes" | "operations")."""
-    t_bytes, t_ops = 1e3 * bytes_moved / PEAK_BYTES_S, 1e3 * ops / peak_ops
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def roofline_bound(model, device) -> dict:
+    """``bound_ms`` and ``bound_by`` of a ``utils/roofline`` work model on this card."""
+    import torch
+
+    from visual_odometry_tpu_torch.utils import roofline
+
+    t, by = model.bound(roofline.spec_for(torch.cuda.get_device_properties(device)))
+    return dict(bound_ms=1e3 * t, bound_by=by)
 
 
 def path_b_inputs(frames: int, slots: int, device):
@@ -377,6 +333,7 @@ def compare_frame_kernel(name, args, plain_frames, device, table, track):
     import torch
 
     from visual_odometry_tpu_torch.ops.kernels import frame_kernel
+    from visual_odometry_tpu_torch.utils import roofline
 
     planar = bool(args[-1])
     plain_frames = min(plain_frames, args[3].idx.shape[0])
@@ -393,17 +350,14 @@ def compare_frame_kernel(name, args, plain_frames, device, table, track):
     ms = time_ms(lambda: track(*args), device, 3)
     ms_short = time_ms(lambda: track(*short), device, 3)
 
-    cand = args[3]
-    f, depth, s = cand.idx.shape
+    f, depth, s = args[3].idx.shape
     # The kernel does not report its round count; the plain version's mean
     # over the compared frames stands for the whole depth.
     rounds_per_frame = sum(rounds) / len(rounds)
-    moved = nbytes(args[0], args[1], args[2], cand.idx, cand.ok, args[4], args[5], args[6])
-    moved += f * (64 + s * 13 + 16)                      # poses, triangulation, stats out
-    ops = f * s * (rounds_per_frame * ROUND_FLOPS[planar] + FRAME_FLOPS)
-    bound_ms, bound_by = bound(moved, ops)
-    table[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=None, plain_frames=plain_frames,
+    table[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       **roofline_bound(roofline.frame_model(f, s, depth, rounds_per_frame, planar),
+                                        device),
+                       library_ms=None, plain_frames=plain_frames,
                        ms_at_plain_frames=ms_short, gn_rounds_per_frame=rounds_per_frame,
                        us_per_gn_round=1e3 * ms_short / sum(rounds))
 
@@ -474,6 +428,8 @@ def compare_kernels(inputs, device, kernel_fns, reps: int = 10, launch_reps: int
     import torch
 
     from visual_odometry_tpu_torch.ops.kernels import frame_kernel, gather_kernel, matcher_kernel
+    from visual_odometry_tpu_torch.utils import roofline
+    from visual_odometry_tpu_torch.utils.roofline import launch_times
 
     out = {}
 
@@ -494,19 +450,12 @@ def compare_kernels(inputs, device, kernel_fns, reps: int = 10, launch_reps: int
     a, a1 = inputs["match_pairs"], inputs["match_pairs_b1"]
     err = max(k1_check(a, "B=510"), k1_check(a1, "B=1"), k1_edge_cases(kernel_fns, device))
     b, n, d = a[0].shape
-    # Each distance is 2d + 3 separately rounded operations (no fused
-    # multiply-add: the function is defined by that rounding), which issue at
-    # half the FMA rate; the function needs each distance once, the kernel
-    # computes it once for each direction.
-    ops = b * n * n * (2 * d + 3)
-    bound_ms, bound_by = bound(nbytes(*a) + 4 * b * n * 4, ops, PEAK_FP32 / 2)
     out["match_pairs"] = dict(
         max_abs_err=err, ms=time_ms(lambda: kernel_fns["match_pairs"](*a), device, reps),
         plain_ms=time_ms(lambda: matcher_kernel.match_pairs_plain(*a), device, 3),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, pairs=b,
-        bound_ms_both_directions=bound(0, 2 * ops, PEAK_FP32 / 2)[0],
+        **roofline_bound(roofline.match_pairs_model(b, n, d), device), library_ms=None, pairs=b,
         ms_b1=time_ms(lambda: kernel_fns["match_pairs"](*a1), device, reps),
-        bound_ms_b1=bound(nbytes(*a1) + 4 * n * 4, n * n * (2 * d + 3), PEAK_FP32 / 2)[0])
+        bound_ms_b1=roofline_bound(roofline.match_pairs_model(1, n, d), device)["bound_ms"])
 
     a = inputs["join_candidates"]
     kc = kernel_fns["join_candidates"](*a)
@@ -514,12 +463,10 @@ def compare_kernels(inputs, device, kernel_fns, reps: int = 10, launch_reps: int
     require(all(torch.equal(x, y) for x, y in zip(kc, pc)), "K2: join candidates differ")
     k2_edge_cases(kernel_fns["join_candidates"], a, device)
     f, s = a[0].shape
-    # Bytes: the four (F, S) inputs read once, the chains and flags written once.
-    bound_ms, bound_by = bound(nbytes(*a[:4]) + nbytes(*kc), 0.0)
     out["join_candidates"] = dict(
         max_abs_err=0.0, ms=time_ms(lambda: kernel_fns["join_candidates"](*a), device, reps),
         plain_ms=time_ms(lambda: frame_kernel.join_candidates_plain(*a), device, 3),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        **roofline_bound(roofline.join_model(f, s, a[4]), device), library_ms=None)
 
     # K3 at path B's three gathers: previous and current pixels (D=2), the
     # appearances (D=10); each also with indices past both ends of S.
@@ -536,11 +483,10 @@ def compare_kernels(inputs, device, kernel_fns, reps: int = 10, launch_reps: int
                                 gather_kernel.gather_rows_plain(src, ix)),
                     f"K3 {key}: the gather differs from the plain version")
         idx64 = idx.long()[..., None].expand(f, s, d)      # the library's index, made once
-        bound_ms, bound_by = bound(2 * nbytes(src) + nbytes(idx), 0.0)
         k3[key] = dict(
             launch_times(lambda: kernel_fns["gather_rows"](src, idx), device, launch_reps),
             plain_ms=time_ms(lambda: gather_kernel.gather_rows_plain(src, idx), device, reps),
-            bound_ms=bound_ms, bound_by=bound_by,
+            **roofline_bound(roofline.gather_model(f, s, d), device),
             **prefixed("library_", launch_times(lambda: torch.gather(src, 1, idx64), device,
                                                 launch_reps)))
     out["gather_rows"] = dict(max_abs_err=0.0, **k3["apps"], pixels_prev=k3["pixels_prev"],
@@ -580,16 +526,6 @@ def solve_problem(n: int, planar: bool, device, seed: int = 0):
     return head + (world.to(device), uv.to(device), w.to(device), 30, 1e4, 1.0, 1e-12), gt
 
 
-def launch_floor(device, reps: int = 50) -> dict:
-    """A one-float fill through launch_times: what one launch costs on this
-    card and host, whatever the kernel does, printed beside K6's and K11's
-    bounds."""
-    import torch
-
-    tiny = torch.empty(1, device=device)
-    return launch_times(lambda: tiny.fill_(0.0), device, reps)
-
-
 def compare_solves(device, table, backend: str = "cuda", reps: int = 10, launch_reps: int = 50):
     """K6: both standalone solves against their plain versions at N = 1024 and
     N = 8192 (clusters of 4 and of 8 CTAs of 256 threads), bit for bit
@@ -597,6 +533,8 @@ def compare_solves(device, table, backend: str = "cuda", reps: int = 10, launch_
     prepared (launch_times: ms, device_ms, host_ms), the GN rounds and the
     device us a round, the geometry, and the launch floor beside the bound."""
     from visual_odometry_tpu_torch.ops.kernels import picp_kernel
+    from visual_odometry_tpu_torch.utils import roofline
+    from visual_odometry_tpu_torch.utils.roofline import launch_floor, launch_times
 
     floor = launch_floor(device, launch_reps) if backend == "cuda" else None
     for planar, name in ((False, "picp_solve"), (True, "picp_solve_se2")):
@@ -617,10 +555,9 @@ def compare_solves(device, table, backend: str = "cuda", reps: int = 10, launch_
                     f"K6 {name} N={n}: the solve missed the ground-truth pose")
             bitwise = same_bits((pose, pose_p), *zip(stats, stats_p))
             ctas, threads = picp_kernel.solve_geometry(n)
-            moved = n * 6 * 4 + (9 + 12 + 4 + (24 if planar else 0)) * 4 + 19 * 4
-            bound_ms, bound_by = bound(moved, rounds[0] * n * ROUND_FLOPS[planar])
             entry = dict(ms=time_ms(lambda: fn(*args, backend=backend), device, reps),
-                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         plain_ms=plain_ms,
+                         **roofline_bound(roofline.picp_model(n, rounds[0], planar), device),
                          gn_rounds=rounds[0], bitwise=bitwise, ctas=ctas, threads=threads,
                          cluster=ctas)
             if backend == "cuda":   # the launch alone, its inputs prepared beforehand
@@ -670,14 +607,13 @@ def compare_matchers(device, table, backend: str = "cuda", nq: int = 1024, nk: i
     import torch
 
     from visual_odometry_tpu_torch.ops.kernels import matcher_kernel
-    from visual_odometry_tpu_torch.utils import synthetic
+    from visual_odometry_tpu_torch.utils import roofline, synthetic
 
     args, pick = match_problem(nq, nk, device)
     ties = tuple(torch.from_numpy(x).to(device) for x in synthetic.generate_match_ties(
         np.random.default_rng(1), nq, nk))
     q, q_mask, db, db_mask = args
     d = q.shape[1]
-    moved = nbytes(q, q_mask, db, db_mask) + nq * 8
     for fast, name in ((False, "best_match"), (True, "best_match_fast")):
         dist, idx = matcher_kernel.best_match(*args, backend=backend, fast=fast)
         (dist_p, idx_p), plain_ms = timed_call(
@@ -697,28 +633,15 @@ def compare_matchers(device, table, backend: str = "cuda", nq: int = 1024, nk: i
                 f"K7 {name}: differs from the plain version on generate_match_ties")
         row = dict(max_abs_err=err, plain_ms=plain_ms)
         if fast:
-            # The least the function needs: the bf16 gram at D padded to 16 on
-            # the tensor cores, and one compare a pair at the issue rate (the
-            # norms can ride in the MMA's free k-slots); the larger one bounds.
-            # This design's epilogue issues 3 a pair (an add, an fma, a
-            # compare), reported beside it.
-            t_mma = 1e3 * nq * nk * 2 * 16 / PEAK_BF16
-            t_epi = 1e3 * nq * nk * 1 / (PEAK_FP32 / 2)
-            bound_ms, bound_by = max((1e3 * moved / PEAK_BYTES_S, "bytes"),
-                                     (max(t_mma, t_epi), "operations"))
             counts = []
             for a in (args, ties):
                 counter = torch.zeros(1, dtype=torch.int64, device=device)
                 matcher_kernel.best_match_cuda(*a, fast=True, survivors=counter)
                 counts.append(int(counter.item()) / nq)
-            row.update(bound_ms_mma=t_mma, bound_ms_epilogue=t_epi,
-                       issue_ms_design_epilogue=3 * t_epi,
-                       survivors_per_query=counts[0], survivors_per_query_ties=counts[1])
-        else:
-            # 2 D + 3 separately rounded operations a pair, issued at half the FMA rate.
-            bound_ms, bound_by = bound(moved, nq * nk * (2 * d + 3), PEAK_FP32 / 2)
+            row.update(survivors_per_query=counts[0], survivors_per_query_ties=counts[1])
         table[name] = dict(
-            row, bound_ms=bound_ms, bound_by=bound_by,
+            row, **roofline_bound(roofline.matcher_model(nq, nk, d, "fast" if fast else "highest"),
+                                  device),
             ms=time_ms(lambda: matcher_kernel.best_match(*args, backend=backend, fast=fast),
                        device, reps),
             # No single PyTorch call computes a top-1 over K = 2^20 rows without the
@@ -772,12 +695,12 @@ def k8_args(rows):
             + rows[0][7:])
 
 
-def k8_reckoning(args, rounds_per_frame: float, planar: bool):
-    """(bytes K8 must move, float operations) at ``rounds_per_frame`` GN rounds."""
+def k8_bound(args, rounds_per_frame: float, planar: bool, device) -> dict:
+    """K8's bound (``roofline.serving_model``) at ``rounds_per_frame`` GN rounds."""
+    from visual_odometry_tpu_torch.utils import roofline
+
     n, f, depth, s = args[4].idx.shape
-    moved = nbytes(args[0], args[1], args[2], args[3], args[4].idx, args[4].ok, args[5], args[6],
-                   args[7]) + n * f * (64 + s * 13 + 16)
-    return moved, n * f * s * (rounds_per_frame * ROUND_FLOPS[planar] + FRAME_FLOPS)
+    return roofline_bound(roofline.serving_model(n, f, s, depth, rounds_per_frame, planar), device)
 
 
 def compare_serving(camera, config, seqs, device, table, rounds_frames: int = 14, reps: int = 3):
@@ -821,10 +744,9 @@ def compare_serving(camera, config, seqs, device, table, rounds_frames: int = 14
     frame_kernel.track_frames_plain(*head_frames(singles[0], rounds_frames), rounds_out=rounds)
     rounds_per_frame = sum(rounds) / len(rounds)
     n, f, depth, s = args[4].idx.shape
-    bound_ms, bound_by = bound(*k8_reckoning(args, rounds_per_frame, planar))
     table[name] = dict(
         max_abs_err=err_single, max_abs_err_vs_plain=err, ms=ms, plain_ms=plain_ms,
-        plain_shape=[1, f, s], bound_ms=bound_ms, bound_by=bound_by,
+        plain_shape=[1, f, s], **k8_bound(args, rounds_per_frame, planar, device),
         library_ms=None, sequences=n, frames=f, slots=s, single_launch_ms=single_ms,
         ms_over_single_launch=ms / single_ms,
         gn_rounds_per_frame_first_sequence_head=rounds_per_frame)
@@ -868,6 +790,7 @@ def compare_chunked_k8(camera, config, seq, plan, device, table, rounds_frames: 
 
     from visual_odometry_tpu_torch.ops.kernels import frame_kernel
     from visual_odometry_tpu_torch.parallel import posegraph
+    from visual_odometry_tpu_torch.utils.roofline import launch_times
 
     chunks = [posegraph._chunk(x, *plan) for x in seq]
     singles = [kernel_inputs(camera, config, *(x[i] for x in chunks))["track_frames"]
@@ -900,11 +823,11 @@ def compare_chunked_k8(camera, config, seq, plan, device, table, rounds_frames: 
                            us_per_gn_round=1e3 * k4_ms * len(r) / (f * sum(r)),
                            bootstrap_t_norm=float(pose0[3::4].norm())))
     rounds_per_frame = statistics.mean(c["gn_rounds_per_frame_head"] for c in chunks)
-    bound_ms, bound_by = bound(*k8_reckoning(args, rounds_per_frame, False))
     table["track_frames_batched"]["path_h"] = dict(
         row, max_abs_err_vs_k4_alone=0.0, max_abs_err_vs_plain=err, plain_ms=plain_ms,
-        plain_shape=[n, rounds_frames, s], sequences=n, frames=f, slots=s, bound_ms=bound_ms,
-        bound_by=bound_by, gn_rounds_per_frame_head_mean=rounds_per_frame, chunks=chunks,
+        plain_shape=[n, rounds_frames, s], sequences=n, frames=f, slots=s,
+        **k8_bound(args, rounds_per_frame, False, device),
+        gn_rounds_per_frame_head_mean=rounds_per_frame, chunks=chunks,
         over_slowest_k4_alone=row["ms"] / max(c["k4_alone_ms"] for c in chunks))
 
 
@@ -994,6 +917,8 @@ def compare_sparse_ba_kernels(problem, device, table, reps: int = 10, launch_rep
     import torch
 
     from visual_odometry_tpu_torch.ops.kernels import gather_kernel, segsum_kernel
+    from visual_odometry_tpu_torch.utils import roofline
+    from visual_odometry_tpu_torch.utils.roofline import launch_times
 
     f = problem.poses.shape[0]
     n = problem.uv.shape[0]
@@ -1014,7 +939,6 @@ def compare_sparse_ba_kernels(problem, device, table, reps: int = 10, launch_rep
         require(torch.equal(got, ref), f"K9 R={r}: sums differ from the plain version by {err}")
         require(bool(torch.isclose(got, lib, rtol=K9_RTOL, atol=K9_ATOL).all()),
                 f"K9 R={r}: sums differ from index_add_ beyond rtol {K9_RTOL}, atol {K9_ATOL}")
-        bound_ms, bound_by = bound(nbytes(vals, plan.order, plan.offsets) + f * r * 4, n * r)
 
         def library():
             return torch.zeros((f + 1, r), device=device).index_add_(0, seg64, vals)
@@ -1026,7 +950,8 @@ def compare_sparse_ba_kernels(problem, device, table, reps: int = 10, launch_rep
                                      device, reps),
             plain_ms=time_ms(lambda: segsum_kernel.segment_sum_small_plain(vals, seg, f, plan),
                              device, reps),
-            library_ms=time_ms(library, device, reps), bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=time_ms(library, device, reps),
+            **roofline_bound(roofline.segment_sum_model(n, f, r), device),
             max_abs_err=err, run_to_run_identical_bits=True,
             max_abs_diff_vs_index_add=float((got - lib).abs().max()))
         row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -1051,8 +976,6 @@ def compare_sparse_ba_kernels(problem, device, table, reps: int = 10, launch_rep
                         f"K10 R={r} (contiguous={tab.is_contiguous()}): "
                         "the gather differs from the plain version")
         tab = rows.T
-        got = gather_kernel.take_table_cuda(tab, idx, transpose_out)
-        bound_ms, bound_by = bound(nbytes(rows, idx, got), 0.0)
 
         def library():
             return (torch.index_select(rows, 0, idx64) if transpose_out
@@ -1063,7 +986,7 @@ def compare_sparse_ba_kernels(problem, device, table, reps: int = 10, launch_rep
                          device, launch_reps),
             plain_ms=time_ms(lambda: gather_kernel.take_table_plain(tab, idx, transpose_out),
                              device, reps),
-            bound_ms=bound_ms, bound_by=bound_by,
+            **roofline_bound(roofline.take_table_model(n, f, r), device),
             **prefixed("library_", launch_times(library, device, launch_reps)))
     row.update(row["r12"])
     row.update(columns=n, table_columns=f)
@@ -1141,6 +1064,8 @@ def compare_linearize(device, table, reps: int = 10, launch_reps: int = 50):
     inputs prepared (launch_times), the geometry, the byte bound and the
     launch floor beside it."""
     from visual_odometry_tpu_torch.ops.kernels import picp_kernel
+    from visual_odometry_tpu_torch.utils import roofline
+    from visual_odometry_tpu_torch.utils.roofline import launch_floor, launch_times
 
     floor = launch_floor(device, launch_reps)
     row = dict(max_abs_err=0.0, library_ms=None, bitwise=True)
@@ -1162,7 +1087,6 @@ def compare_linearize(device, table, reps: int = 10, launch_reps: int = 50):
             require(same_bits((h, again[0]), (b, again[1]), *zip(st, again[2])),
                     f"K11 N={n}: two launches gave different bits")
         ctas, threads = picp_kernel.linearize_geometry(n)
-        bound_ms, bound_by = bound(n * 6 * 4 + 25 * 4 + 45 * 4, n * ROUND_FLOPS[False])
         prepared = tuple(x.contiguous() for x in head) + pts + (1e4, False)
         alone = launch_times(lambda: picp_kernel._linearize_cuda(*prepared), device, launch_reps)
         row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -1172,9 +1096,35 @@ def compare_linearize(device, table, reps: int = 10, launch_reps: int = 50):
                        reps),
             launch_ms=alone["ms"], device_ms=alone["device_ms"], host_ms=alone["host_ms"],
             plain_ms=time_ms(lambda: picp_kernel.linearize_plain(*head, *pts, 1e4), device, 3),
-            bound_ms=bound_ms, bound_by=bound_by, launch_floor=floor, bitwise=bitwise, ctas=ctas, threads=threads, cluster=1)
+            **roofline_bound(roofline.linearize_model(n), device), launch_floor=floor,
+            bitwise=bitwise, ctas=ctas, threads=threads, cluster=1)
     row.update(row["n8192"])
     table["picp_linearize"] = row
+
+
+def run_utils_phase(device) -> dict:
+    """utils/selfcheck's eight checks on the card, each check's kernels
+    launched (counted from the reset before its kernel side to its end), then
+    utils/roofline's measure() and measure_sparse_ba() with the card's spec;
+    every roofline fraction and mfu must lie in (0, 1]."""
+    from visual_odometry_tpu_torch.ops.kernels import _lib
+    from visual_odometry_tpu_torch.utils import roofline, selfcheck
+
+    checks, launches = {}, {}
+    for check in selfcheck.CHECKS:
+        name = check.__name__
+        checks.update(check(device))
+        launches[name] = {k: _lib.launches[k] for k in selfcheck.LAUNCHES[name]}
+        require(all(launches[name].values()), f"{name}: a kernel never launched: {launches[name]}")
+    print(json.dumps({"selfcheck": dict(checks, launches_from_kernel_side=launches)}))
+    out = roofline.measure(device)
+    out.update((k, v) for k, v in roofline.measure_sparse_ba(device).items()
+               if k.startswith("sparse_ba_"))
+    shares = {k: v for k, v in out.items() if k.endswith(("_roofline_fraction", "_mfu"))}
+    require(len(shares) == 5 and all(0.0 < v <= 1.0 for v in shares.values()),
+            f"roofline: a fraction outside (0, 1]: {shares}")
+    print(json.dumps({"roofline": out}))
+    return out
 
 
 def read_launches(names, label: str, must: bool = True):
@@ -1982,6 +1932,7 @@ def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1
     from visual_odometry_tpu_torch.parallel import multiseq, posegraph, sparse_ba
     from visual_odometry_tpu_torch.utils import profiling, synthetic
     from visual_odometry_tpu_torch.utils.config import DEFAULT_CONFIG, VOConfig
+    from visual_odometry_tpu_torch.utils.roofline import device_events
 
     own = ("match_pairs", "join_candidates", "gather_rows", "track_frames", "picp_solve",
            "best_match_scan", "best_match_tc", "best_match_fold", "segment_sum", "take_table",
@@ -2144,6 +2095,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("kernels vs plain versions: all agree")
     phase("kernel phase", t0)
+
+    # ---- 3b. utils/selfcheck and utils/roofline ----
+    t0 = time.perf_counter()
+    run_utils_phase(device)
+    phase("selfcheck and roofline", t0)
 
     # ---- 4-12. the paths ----
     work = os.path.join(ROOT, "build", "chip_smoke_work")

@@ -13,7 +13,9 @@ rounded sqrt and the card's sin/cos, so their poses are held to 1e-5 (bitwise
 expected). K8 equals K4/K5 per sequence exactly (the same ``__global__``),
 K10 is a copy and exact, K11 sums in its plain version's order (1e-5 of the
 largest entry, bitwise expected), K9 sums in one fixed order that its plain
-version repeats: exact, and the same bits in every launch.
+version repeats: exact, and the same bits in every launch. utils/selfcheck's
+checks hold their own tolerances (the JAX package's), and utils/roofline's
+fractions lie in (0, 1].
 """
 
 import numpy as np
@@ -28,7 +30,7 @@ from visual_odometry_tpu_torch.ops.kernels import (
     frame_kernel, gather_kernel, matcher_kernel, picp_kernel, segsum_kernel,
 )
 from visual_odometry_tpu_torch.parallel import multiseq, posegraph, sparse_ba
-from visual_odometry_tpu_torch.utils import synthetic
+from visual_odometry_tpu_torch.utils import roofline, selfcheck, synthetic
 from visual_odometry_tpu_torch.utils.config import VOConfig
 
 pytestmark = pytest.mark.cuda
@@ -919,3 +921,32 @@ def test_synthetic_apps_on_the_card(dev):
     x, x_gt = apps.run_init_synthetic(num_points=400, verbose=False, device=dev)
     np.testing.assert_allclose(x[:3, :3], x_gt[:3, :3], atol=5e-3)
     assert apps.run_kdtree_test(num_points=300, verbose=False, device=dev).mean() > 0.9
+
+
+@pytest.mark.parametrize("name", list(selfcheck.LAUNCHES))
+def test_selfcheck_on_the_card(dev, name):
+    """Each of utils/selfcheck's eight checks passes on the card, and each of
+    its kernels launched (the counters are reset before its kernel side)."""
+    getattr(selfcheck, name)(dev)
+    assert all(_lib.launches[k] > 0 for k in selfcheck.LAUNCHES[name])
+
+
+def test_selfcheck_run_all_on_the_card(dev):
+    assert set(selfcheck.run_all()) >= {"map_size", "pair_matcher_n_valid", "serving_traj_diff"}
+
+
+def test_roofline_spec_of_this_card(dev):
+    props = torch.cuda.get_device_properties(dev)
+    spec = roofline.spec_for(props)
+    assert spec.name == props.name and spec.sms == props.multi_processor_count
+    assert spec.fp32_ops == spec.sms * 128 * roofline.DATA_SHEETS[props.name][0]
+    assert spec.hbm_bw > 1e12 and spec.tc_bf16_flops > 5e14
+
+
+def test_roofline_fractions_on_the_card(dev):
+    """measure() at a cut size (the fractions need no full-size run): every
+    roofline fraction and mfu lies in (0, 1]."""
+    out = roofline.measure(queries=256, rows=1 << 15, points=1024, gn_rounds=20, frames=16)
+    shares = [v for k, v in out.items() if k.endswith(("_roofline_fraction", "_mfu"))]
+    assert len(shares) == 4 and all(0.0 < v <= 1.0 for v in shares)
+    assert out["spec"]["name"] == torch.cuda.get_device_name(0)
