@@ -39,10 +39,18 @@ its first 128 frames, whose GN rounds the plain version counts once, for
 ``us_per_gn_round``), K5 on path D, K8 on path E (64 sequences x 128 slots
 x 126 frames), K2 on path B (``k2_path_b``) and K7 at path C's shape
 (``k7_fast``, ``k7_exact``: chip_smoke.match_problem, 1,024 queries x 2^20
-rows); ``ms`` is the median of ``--reps`` CUDA-event times (4x as many for
-K1, K2 and K7). Then, through each checkout's own pipeline, path B's
-``run_sequence`` (its bootstrap included; trajectory and map) and path E's
-``run_sequences_batched`` (trajectories, maps, per-frame outputs). Each
+rows), K7 exact at D = 17 and 32 (``k7_exact_d17``, ``k7_exact_d32``:
+1,024 queries x 2^18 rows); ``ms`` is the median of ``--reps`` CUDA-event
+times (4x as many for K1, K2 and K7). K7 at path A's relocalization shape
+(``k7_exact_path_a``, ``k7_fast_path_a``: the default config's 128 slots
+against its 1,024-row map) and exact at the shapes of ``K7_SMALL`` also give
+``host_ms`` and the profiler's ``device_ms`` of a call (every kernel and the
+memset). Then, through each checkout's own pipeline, path B's
+``run_sequence`` (its bootstrap included; trajectory and map), path E's
+``run_sequences_batched`` (trajectories, maps, per-frame outputs) and path
+A's relocalization query, ``pipeline.relocalize_frame`` at the default
+config's shape in both precisions (``reloc_path_a_*``: ``ms``, the host
+clock around a call ended by a sync, median of 8 x ``--reps``). Each
 output's SHA-256 shows whether the two checkouts agree bit for bit. Any checkout of the port since its serving slice runs it.
 
 ``phases`` (no OTHER_ROOT): K4's round broken into phases on path B. It
@@ -199,6 +207,11 @@ def _launch(reps: int) -> dict:
 
 KERNEL_INPUTS = os.path.join(ROOT, "build", "chip_ab", "kernels_inputs.pt")
 K4_HEAD_FRAMES = 128
+K7_WIDE_DIMS = (17, 32)   # K7 exact past D = 16: the tensor-core scan here, the FP32 scan before
+# K7 exact between path A's and path C's shapes, (queries, rows) at D = 10:
+# 2^19 to 2^26 pairs, across matcher_kernel.EXACT_SCAN_PAIRS.
+K7_SMALL = ((128, 4096), (128, 16384), (1024, 4096), (128, 65536), (256, 65536), (512, 65536),
+            (1024, 65536))
 
 
 def _ms(fn, reps: int) -> float:
@@ -269,8 +282,15 @@ def _prepare_kernel_inputs() -> None:
     seqs = chip_smoke.serving_inputs(64, 128, 128, DEFAULT_CONFIG, device)
     os.makedirs(os.path.dirname(KERNEL_INPUTS), exist_ok=True)
     k7, _ = chip_smoke.match_problem(1024, 1 << 20, device)
+    k7_wide = {f"k7_exact_d{d}": _cpu(chip_smoke.match_problem(1024, 1 << 18, device, dim=d)[0])
+               for d in K7_WIDE_DIMS}
+    k7_path_a, _ = chip_smoke.match_problem(DEFAULT_CONFIG.n_slots, DEFAULT_CONFIG.map_capacity,
+                                            device)
+    k7_small = {f"k7_exact_q{nq}_k{nk}": _cpu(chip_smoke.match_problem(nq, nk, device)[0])
+                for nq, nk in K7_SMALL}
     torch.save({"k1": _cpu(b["match_pairs"]), "k1_b1": _cpu(b["match_pairs_b1"]),
                 "k2": _cpu(b["join_candidates"]), "k7": _cpu(k7),
+                "k7_path_a": _cpu(k7_path_a), **k7_wide, **k7_small,
                 "k4": _cpu(b["track_frames"]), "k5": _cpu(d["track_frames"]),
                 "k8": _cpu(_k8_args(camera, DEFAULT_CONFIG, seqs)), "k4_head_rounds": rounds},
                KERNEL_INPUTS)
@@ -327,6 +347,18 @@ def _kernels(reps: int) -> dict:
     for key, fast in (("k7_fast", True), ("k7_exact", False)):
         out[key] = {"ms": _ms(lambda: matcher_kernel.best_match_cuda(*inp["k7"], fast), 4 * reps),
                     "sha": _sha(matcher_kernel.best_match_cuda(*inp["k7"], fast))}
+    for key in (f"k7_exact_d{d}" for d in K7_WIDE_DIMS):
+        out[key] = {"ms": _ms(lambda: matcher_kernel.best_match_cuda(*inp[key]), 4 * reps),
+                    "sha": _sha(matcher_kernel.best_match_cuda(*inp[key]))}
+    # Small problems, where launches and latency weigh: host and device time too.
+    small = {"k7_exact_path_a": (inp["k7_path_a"], False),
+             "k7_fast_path_a": (inp["k7_path_a"], True),
+             **{f"k7_exact_q{nq}_k{nk}": (inp[f"k7_exact_q{nq}_k{nk}"], False)
+                for nq, nk in K7_SMALL}}
+    for key, (args, fast) in small.items():
+        out[key] = dict(_timings(lambda: matcher_kernel.best_match_cuda(*args, fast), 4 * reps,
+                                 "best_match"),
+                        sha=_sha(matcher_kernel.best_match_cuda(*args, fast)))
     # End to end through each checkout's own pipeline: path B's run_sequence
     # (bootstrap included) and path E's serving batch.
     device = torch.device("cuda")
@@ -337,7 +369,36 @@ def _kernels(reps: int) -> dict:
     seqs = chip_smoke.serving_inputs(64, 128, 128, DEFAULT_CONFIG, device)
     traj, maps, outs = multiseq.run_sequences_batched(camera, DEFAULT_CONFIG, *seqs)
     out["path_e_serving"] = {"sha": _sha((traj, *maps, *outs))}
+    # Path A's relocalization query end to end: the default config's 128
+    # slots against its 1,024-row map (chip_smoke.path_c_inputs at that size).
+    camera, map_state, frame, x0, _ = chip_smoke.path_c_inputs(
+        device, DEFAULT_CONFIG.map_capacity, DEFAULT_CONFIG.n_slots)
+    for precision in ("highest", "fast"):
+        config = DEFAULT_CONFIG.replace(matcher_precision=precision)
+
+        def reloc():
+            return pipeline.relocalize_frame(camera, config, map_state, frame, x0)
+
+        pose, stats, n_matches = reloc()
+        out["reloc_path_a_" + precision] = {
+            "ms": _wall_ms(reloc, 8 * reps),
+            "sha": _sha((pose, stats.num_inliers, torch.as_tensor(n_matches)))}
     return out
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """The host clock around one call ended by a sync, median of ``reps`` after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
 
 
 DIAG_DIR = os.path.join(ROOT, "build", "vo_torch_kernels_diag")

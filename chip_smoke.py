@@ -17,8 +17,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      are Python loops: K4 is compared over the first 256 tracked frames, K5
      over the first 128; path B holds K4 to the plain run at full depth), K6 standalone solves (SE(3) and planar) at N = 1024 and 8192,
      K7 map-scale matcher (exact and fast) at Q = 1024, K = 2^20 with masked
-     rows holding NaN, and on synthetic.generate_match_ties' data (the fast
-     mode's rescored pairs a query counted on both); K5's inputs are path D's; K8 batched frame loop at
+     rows holding NaN, and on synthetic.generate_match_ties' and
+     generate_exact_match_ties' data (each mode's rescored pairs a query
+     counted on all three); K5's inputs are path D's; K8 batched frame loop at
      N = 64 sequences x 128 slots x 126 tracked frames, SE(3) and planar, per
      sequence against K4/K5 launched alone and its first sequence against
      the plain version over all 126 frames; K9 segment sum and K10 table gather at the sparse-BA
@@ -48,7 +49,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      run_vo_da_known and
      run_relocalize (both matcher precisions) on cuda, apps.run_evaluation —
      held to the accuracy bounds of tests/test_dataset_gen.py, the planar
-     subgroup bound and the relocalization bounds of tests/test_relocalize.py;
+     subgroup bound and the relocalization bounds of tests/test_relocalize.py,
+     and every K7 call run_relocalize makes (3 in each precision, 128
+     queries against the 1,024-row map) held bit for bit, indices and
+     distances, to best_match_plain on the same card tensors;
      then the reference's remaining programs, each with the counters zeroed
      before it and read after it: run_real_init, run_picp_known_real (K6
      once a frame; scale and RMSE within 1e-3, tests/test_apps.py:25-37),
@@ -581,15 +585,15 @@ def compare_solves(device, table, backend: str = "cuda", reps: int = 10, launch_
         table[name] = row
 
 
-def match_problem(nq: int, nk: int, device, seed: int = 0):
+def match_problem(nq: int, nk: int, device, seed: int = 0, dim: int = 10):
     """Queries near database rows; a tenth of the rows and a twentieth of the
     queries masked, NaN written into the masked rows."""
     import torch
 
     rng = np.random.default_rng(seed)
-    db = rng.uniform(-1.0, 1.0, (nk, 10)).astype(np.float32)
+    db = rng.uniform(-1.0, 1.0, (nk, dim)).astype(np.float32)
     pick = rng.permutation(nk)[:nq]
-    q = (db[pick] + rng.normal(0, 1e-3, (nq, 10))).astype(np.float32)
+    q = (db[pick] + rng.normal(0, 1e-3, (nq, dim))).astype(np.float32)
     db_mask = rng.uniform(size=nk) > 0.1
     q_mask = rng.uniform(size=nq) > 0.05
     db[~db_mask] = np.nan
@@ -599,11 +603,14 @@ def match_problem(nq: int, nk: int, device, seed: int = 0):
 def compare_matchers(device, table, backend: str = "cuda", nq: int = 1024, nk: int = 1 << 20,
                      reps: int = 10):
     """K7: exact and fast against the plain version at map scale, on
-    match_problem's data and on synthetic.generate_match_ties' (negative gram
+    match_problem's data, on synthetic.generate_match_ties' (negative gram
     distances that clamp and tie, duplicates one tile apart, rows one bfloat16
-    ulp apart, NaN and inf in masked and live rows): indices and distances
-    bitwise. The fast mode's rescored (query, row) pairs are counted in a
-    separate call."""
+    ulp apart, NaN and inf in masked and live rows) and on
+    synthetic.generate_exact_match_ties' (rows one float32 ulp apart,
+    negative exact keys that differ, duplicates a tile and a split apart,
+    bf16's subnormal edge, norms that overflow): indices and distances
+    bitwise. Each mode's rescored (query, row) pairs are counted on all
+    three in separate calls."""
     import torch
 
     from visual_odometry_tpu_torch.ops.kernels import matcher_kernel
@@ -612,6 +619,8 @@ def compare_matchers(device, table, backend: str = "cuda", nq: int = 1024, nk: i
     args, pick = match_problem(nq, nk, device)
     ties = tuple(torch.from_numpy(x).to(device) for x in synthetic.generate_match_ties(
         np.random.default_rng(1), nq, nk))
+    exact_ties = tuple(torch.from_numpy(x).to(device) for x in synthetic.generate_exact_match_ties(
+        np.random.default_rng(2), nq, nk))
     q, q_mask, db, db_mask = args
     d = q.shape[1]
     for fast, name in ((False, "best_match"), (True, "best_match_fast")):
@@ -627,18 +636,21 @@ def compare_matchers(device, table, backend: str = "cuda", nq: int = 1024, nk: i
         own = torch.from_numpy(pick).to(device)
         want = q_mask & db_mask[own]
         require(bool((idx[want] == own[want]).all()), f"K7 {name}: a query missed its own row")
-        tie_dist, tie_idx = matcher_kernel.best_match(*ties, backend=backend, fast=fast)
-        tie_dist_p, tie_idx_p = matcher_kernel.best_match_plain(*ties, fast=fast)
-        require(torch.equal(tie_idx, tie_idx_p) and torch.equal(tie_dist, tie_dist_p),
-                f"K7 {name}: differs from the plain version on generate_match_ties")
+        for label, data in (("generate_match_ties", ties),
+                            ("generate_exact_match_ties", exact_ties)):
+            tie_dist, tie_idx = matcher_kernel.best_match(*data, backend=backend, fast=fast)
+            tie_dist_p, tie_idx_p = matcher_kernel.best_match_plain(*data, fast=fast)
+            require(torch.equal(tie_idx, tie_idx_p) and torch.equal(tie_dist, tie_dist_p),
+                    f"K7 {name}: differs from the plain version on {label}")
         row = dict(max_abs_err=err, plain_ms=plain_ms)
-        if fast:
+        if backend == "cuda":
             counts = []
-            for a in (args, ties):
+            for a in (args, ties, exact_ties):
                 counter = torch.zeros(1, dtype=torch.int64, device=device)
-                matcher_kernel.best_match_cuda(*a, fast=True, survivors=counter)
+                matcher_kernel.best_match_cuda(*a, fast=fast, survivors=counter)
                 counts.append(int(counter.item()) / nq)
-            row.update(survivors_per_query=counts[0], survivors_per_query_ties=counts[1])
+            row.update(survivors_per_query=counts[0], survivors_per_query_ties=counts[1],
+                       survivors_per_query_exact_ties=counts[2])
         table[name] = dict(
             row, **roofline_bound(roofline.matcher_model(nq, nk, d, "fast" if fast else "highest"),
                                   device),
@@ -1152,7 +1164,7 @@ def run_path_a(work_dir: str, device, require_launches: bool = True):
 
     from visual_odometry_tpu_torch import apps
     from visual_odometry_tpu_torch.ops import se3
-    from visual_odometry_tpu_torch.ops.kernels import _lib
+    from visual_odometry_tpu_torch.ops.kernels import _lib, matcher_kernel
     from visual_odometry_tpu_torch.utils import dataset_gen, io
     from visual_odometry_tpu_torch.utils.config import DEFAULT_CONFIG
 
@@ -1185,13 +1197,16 @@ def run_path_a(work_dir: str, device, require_launches: bool = True):
             "path A vo_daknown: time_known.txt is empty")
 
     for precision in ("highest", "fast"):
-        rows = apps.run_relocalize(data, outs["reloc"], every=10, device=device,
-                                   config=DEFAULT_CONFIG.replace(matcher_precision=precision))
+        with recording(matcher_kernel, "best_match") as matches:
+            rows = apps.run_relocalize(data, outs["reloc"], every=10, device=device,
+                                       config=DEFAULT_CONFIG.replace(matcher_precision=precision))
         require(len(rows) == 3, f"path A relocalize: {len(rows)} rows")
         for f, err_t, err_r, n_matches, n_inliers in rows:   # tests/test_relocalize.py:91-92
             require(err_t < 0.05 and err_r < 1e-3,
                     f"path A relocalize ({precision}) frame {f}: {err_t}, {err_r}")
         report["relocalize_" + precision] = [list(r) for r in rows]
+        report["relocalize_" + precision + "_vs_plain"] = hold_matches_to_plain(
+            matches, precision == "fast", len(rows), f"path A relocalize ({precision})")
     sync(device)
     launches = read_launches(PATH_A, "path A", require_launches)
     app_launches = run_path_a_apps(data, work_dir, device, require_launches)
@@ -1237,6 +1252,30 @@ def hold_solves_to_plain(calls, label: str) -> float:
                 f"{int(stats_p.num_inliers)}")
         err = max(err, e)
     return err
+
+
+def hold_matches_to_plain(calls, fast: bool, expected: int, label: str) -> dict:
+    """Each recorded K7 call (matcher_kernel.best_match) run again through
+    best_match_plain on the same card tensors: indices and distances bit for
+    bit. ``expected`` calls, each on the card and in the given mode, are
+    required. Returns the calls' shapes and the largest distance difference."""
+    import torch
+
+    from visual_odometry_tpu_torch.ops.kernels import matcher_kernel
+
+    require(len(calls) == expected, f"{label}: {len(calls)} K7 calls recorded, not {expected}")
+    shapes, err = [], 0.0
+    for c, (args, kwargs, (dist, idx)) in enumerate(calls):
+        require(args[0].is_cuda and kwargs.get("fast", False) == fast,
+                f"{label}: call {c} ran on {args[0].device} with fast={kwargs.get('fast')}")
+        dist_p, idx_p = matcher_kernel.best_match_plain(*args, fast=fast)
+        live = dist_p < 1e38
+        if bool(live.any()):
+            err = max(err, float((dist - dist_p)[live].abs().max()))
+        require(torch.equal(idx, idx_p) and same_bits((dist, dist_p)),
+                f"{label}: call {c} differs from best_match_plain (max |d dist| {err})")
+        shapes.append([args[0].shape[0], args[2].shape[0]])
+    return {"calls": len(calls), "shapes": shapes, "max_abs_err_vs_plain": err}
 
 
 def hold_tree_to_plain(builds, matches, label: str) -> None:
@@ -2010,6 +2049,14 @@ def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1
     return report
 
 
+def demangled(text: str) -> str:
+    """``text`` with its C++ symbols demangled by c++filt, where there is one."""
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return text
+    return subprocess.run([tool], input=text, stdout=subprocess.PIPE, text=True).stdout
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2054,8 +2101,8 @@ def main() -> int:
     path, seconds, log = _lib.build()
     _lib.library()
     print(f"build: {os.path.relpath(path, ROOT)} in {seconds:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+    for line in demangled(log).splitlines():
+        if any(w in line for w in ("entry function", "registers", "spill")) or line.startswith("=="):
             print("  " + line.strip())
 
     # ---- 3. kernels vs plain versions at the main path's shapes ----

@@ -7,16 +7,21 @@ no JAX it runs as
     python -m pytest --noconftest -q -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: K1-K3 and K7 are exact (the distances use the same explicitly
-rounded operations in the same order, K2/K3 are selection). K4, K5 and K6 add
-their lane sums in the plain versions' order, both sides use a correctly
-rounded sqrt and the card's sin/cos, so their poses are held to 1e-5 (bitwise
-expected). K8 equals K4/K5 per sequence exactly (the same ``__global__``),
+rounded operations in the same order, K2/K3 are selection; K7 filters on
+the tensor cores and takes the plain key on what the filter leaves). K4, K5
+and K6 add their lane sums in the plain versions' order, both sides use a
+correctly rounded sqrt and the card's sin/cos, so their poses are held to
+1e-5 (bitwise expected). K8 equals K4/K5 per sequence exactly (the same ``__global__``),
 K10 is a copy and exact, K11 sums in its plain version's order (1e-5 of the
 largest entry, bitwise expected), K9 sums in one fixed order that its plain
 version repeats: exact, and the same bits in every launch. utils/selfcheck's
 checks hold their own tolerances (the JAX package's), and utils/roofline's
 fractions lie in (0, 1].
 """
+
+import ctypes
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -451,7 +456,7 @@ def test_best_match_fast_on_match_ties(dev, nk):
     tie, duplicates one tile apart, rows one bfloat16 ulp apart, NaN and inf
     in masked and live rows), then with every row masked: indices and
     distances bitwise against the plain version, both precisions; the fast
-    mode reports the pairs it rescored."""
+    modes report the pairs they rescored."""
     q, qm, db, dbm = (torch.from_numpy(x).to(dev) for x in synthetic.generate_match_ties(
         np.random.default_rng(3), 1024, nk))
     for mask in (dbm, torch.zeros_like(dbm)):
@@ -461,11 +466,135 @@ def test_best_match_fast_on_match_ties(dev, nk):
             dist_p, idx_p = matcher_kernel.best_match_plain(q, qm, db, mask, fast=fast)
             assert torch.equal(idx, idx_p) and torch.equal(dist, dist_p)
             rescored = int(counter.item())
-            if not fast or not bool(mask.any()):
+            if not bool(mask.any()):
                 assert rescored == 0
-            else:
-                assert 1024 <= rescored <= 1024 * 256   # a seeded threshold: few a query
+            else:   # both modes filter on the tensor cores against a seeded threshold
+                assert 1024 <= rescored <= 1024 * 256
     assert bool((idx == 0).all())
+
+
+@pytest.mark.parametrize("route", ["filter", "scan"])
+@pytest.mark.parametrize("nq,nk", [(64, 4096), (130, 300), (1024, 65536)])
+def test_best_match_exact_on_exact_ties(dev, monkeypatch, nq, nk, route):
+    """K7's exact mode on both routes at each shape: the tensor-core filter
+    (the bf16-split gram, its proven interval, the plain key on the
+    survivors) and the FP32 scan (matcher_kernel.fp32_scan; forced either way
+    through EXACT_SCAN_PAIRS), on synthetic.generate_exact_match_ties: rows
+    one ulp apart, negative keys that differ, duplicates a tile and a split
+    apart, bf16's subnormal edge, norms that overflow, NaN and inf rows; then
+    with every row masked. Indices and distances bitwise against the plain
+    version, one launch a call, the filter's rescored pairs counted (the
+    scan rescores none)."""
+    monkeypatch.setattr(matcher_kernel, "EXACT_SCAN_PAIRS", 0 if route == "filter" else 1 << 62)
+    q, qm, db, dbm = (torch.from_numpy(x).to(dev) for x in synthetic.generate_exact_match_ties(
+        np.random.default_rng(nq), nq, nk))
+    for mask in (dbm, torch.zeros_like(dbm)):
+        counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        _lib.reset_launches()
+        dist, idx = matcher_kernel.best_match_cuda(q, qm, db, mask, False, survivors=counter)
+        assert _lib.launches["best_match"] == 1
+        dist_p, idx_p = matcher_kernel.best_match_plain(q, qm, db, mask)
+        assert torch.equal(idx, idx_p) and torch.equal(dist, dist_p)
+        rescored = int(counter.item())
+        if bool(mask.any()) and route == "filter":
+            assert nq <= rescored <= nq * max(256, nk // 16)
+        else:
+            assert rescored == 0
+        assert bool(mask.any()) or bool((idx == 0).all())
+
+
+@pytest.mark.parametrize("d", [1, 3, 10, 16, 17, 32])
+def test_best_match_exact_widths(dev, monkeypatch, d):
+    """The exact mode's tensor-core filter at every width it takes: D = 10
+    its own instance, the others the run-time instance (KC = ceil(3 D / 16)
+    k-chunks, up to six at D = 32, with the shared-memory opt-in above five),
+    bitwise against the plain version on generate_exact_match_ties at that
+    width."""
+    monkeypatch.setattr(matcher_kernel, "EXACT_SCAN_PAIRS", 0)
+    q, qm, db, dbm = (torch.from_numpy(x).to(dev) for x in synthetic.generate_exact_match_ties(
+        np.random.default_rng(d), 512, 1 << 16, dim=d))
+    counter = torch.zeros(1, dtype=torch.int64, device=dev)
+    dist, idx = matcher_kernel.best_match_cuda(q, qm, db, dbm, False, survivors=counter)
+    dist_p, idx_p = matcher_kernel.best_match_plain(q, qm, db, dbm)
+    assert torch.equal(idx, idx_p) and torch.equal(dist, dist_p)
+    assert int(counter.item()) >= 512
+
+
+@pytest.fixture(scope="module")
+def split_gram_probe(tmp_path_factory):
+    """tests/csrc/split_gram_probe.cu built with the package's nvcc flags."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    src = Path(__file__).parent / "csrc" / "split_gram_probe.cu"
+    lib = tmp_path_factory.mktemp("split_gram_probe") / "probe.so"
+    res = subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-shared", str(src), "-o", str(lib)],
+                         capture_output=True, text=True)
+    assert res.returncode == 0, res.stdout + res.stderr
+    fn = ctypes.CDLL(str(lib)).vo_split_gram_probe
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _adversarial_gram_rows(rng, blocks: int, d: int):
+    """(16 blocks, d) queries and (8 blocks, d) rows, a third of the blocks
+    each: components spread over 2^-30 .. 2^30; one large product and the
+    rest 2^-24 .. 2^-14 of it with one sign, which the accumulator's
+    alignment truncates; products of about one alternating in sign, which
+    cancel."""
+    def unit(shape):
+        return rng.uniform(1.0, 2.0, shape) * rng.choice([-1.0, 1.0], shape)
+
+    q, k = unit((blocks, 16, d)), unit((blocks, 8, d))
+    third = blocks // 3
+    spread = slice(0, third)
+    q[spread] *= 2.0 ** rng.uniform(-30, 30, q[spread].shape)
+    k[spread] *= 2.0 ** rng.uniform(-30, 30, k[spread].shape)
+    tail = slice(third, 2 * third)
+    q[tail] = np.abs(q[tail])
+    k[tail] = np.abs(k[tail]) * 2.0 ** rng.uniform(-24, -14, k[tail].shape)
+    k[tail, :, 0] = 16.0 * rng.uniform(1.0, 2.0, k[tail, :, 0].shape)
+    cancel = slice(2 * third, blocks)
+    q[cancel] *= 2.0 ** rng.uniform(-4, 4, q[cancel].shape)
+    sign = np.where(np.arange(d) % 2 == 0, 1.0, -1.0)
+    k[cancel] = (sign * rng.uniform(1.0, 2.0, k[cancel].shape)
+                 / np.abs(q[cancel][:, :8]) * 2.0 ** rng.uniform(-2, 2, k[cancel].shape))
+    return q.reshape(-1, d).astype(np.float32), k.reshape(-1, d).astype(np.float32)
+
+
+@pytest.mark.parametrize("d", [10, 16, 32])
+def test_split_gram_accumulation_within_the_bound(dev, split_gram_probe, d):
+    """The premise of csrc/best_match.cu's exact-mode interval, on this card:
+    the ceil(3 D / 16) chained m16n8k16 MMAs of the split-bf16 gram
+    (hi.hi + mid.hi + hi.mid) end within 96 KC u P_G (1 + 576 u) of the
+    exact sum G of the packed products (float64), P_G their absolute sum,
+    u = 2^-24, on rows built to trip the accumulation
+    (_adversarial_gram_rows)."""
+    blocks = 768
+    q, k = _adversarial_gram_rows(np.random.default_rng(d), blocks, d)
+    out = torch.empty(blocks * 128, dtype=torch.float32, device=dev)
+    qd, kd = torch.from_numpy(q).to(dev), torch.from_numpy(k).to(dev)
+    code = split_gram_probe(qd.data_ptr(), kd.data_ptr(), out.data_ptr(), blocks, d,
+                            torch.cuda.current_stream(dev).cuda_stream)
+    assert code == 0
+    acc = out.cpu().double().reshape(blocks, 16, 8)
+
+    def terms(x):
+        x = torch.from_numpy(x)
+        hi = x.to(torch.bfloat16).to(torch.float32)
+        mid = (x - hi).to(torch.bfloat16).to(torch.float32)
+        return hi.double().reshape(blocks, -1, d), mid.double().reshape(blocks, -1, d)
+
+    (hq, mq), (hk, mk) = terms(q), terms(k)
+    prods = [a[:, :, None, :] * b[:, None, :, :] for a, b in ((hq, hk), (mq, hk), (hq, mk))]
+    g = sum(p.sum(-1) for p in prods)
+    p_g = sum(p.abs().sum(-1) for p in prods)
+    u, kc = 2.0 ** -24, -(-3 * d // 16)
+    ratio = (acc - g).abs() / (u * p_g)
+    print(f"D = {d}, KC = {kc}: max |acc - G| / (u P_G) {float(ratio.max()):.3f}, "
+          f"allowed {96 * kc * (1 + 576 * u):.3f}")
+    assert bool(torch.isfinite(acc).all())
+    assert float(ratio.max()) <= 96 * kc * (1 + 576 * u)
 
 
 @pytest.mark.parametrize("d", [7, 16, 24])

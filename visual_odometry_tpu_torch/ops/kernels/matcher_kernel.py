@@ -6,9 +6,12 @@ Replaces ``visual_odometry_tpu/ops/pallas/matcher_kernel.py``:
 and 128-row tile of a pair, four rows a lane in registers against the other
 frame staged in shared memory, FP32 pipes) and ``best_match_pallas`` with
 ``csrc/best_match.cu`` (query tiles x database splits, then a fold of the
-splits). K1 and K7's exact mode are bound by the FP32 instruction rate; K7's
-fast mode runs its bf16 gram on the tensor cores and re-selects exactly on
-the rows a proven error bound cannot rule out, see the sources' headers.
+splits). K1 runs on the FP32 pipes. K7 runs a gram on the tensor cores in
+both modes (the fast mode on bf16-rounded operands, the exact mode on each
+float32 split into two bf16 terms) and re-selects on the plain key among the
+rows a proven error bound cannot rule out, see the sources' headers; small
+exact problems and the fast mode past D = 16 take an FP32 scan
+(``fp32_scan``).
 
 Distances use the gram form ``(|a|^2 + |b|^2) - 2 a.b`` with every dot product
 and squared norm summed in descriptor order from separately rounded products,
@@ -151,12 +154,37 @@ def best_match_plain(queries, q_mask, db, db_mask, fast: bool = False):
     return torch.where(q_mask, dist, BIG), arg.to(torch.int32)
 
 
+def split_geometry(nq: int, nk: int) -> Tuple[int, int]:
+    """(splits, rows a split) of K7's grid: enough (128-query tile, database
+    split) CTAs to fill the card, each split a whole number of 256-row
+    tiles; the tensor-core scan takes 256 queries a CTA over the same
+    splits."""
+    q_tiles = max(1, -(-nq // _TQ))
+    splits = max(1, min(-(-nk // _TK), -(-2048 // q_tiles)))
+    return splits, -(-(-(-nk // splits)) // _TK) * _TK
+
+
+# Below this many (query, row) pairs the exact mode at D = 10 takes the FP32
+# scan: the tensor-core filter's memset, seed pass and per-CTA latency cost
+# more than its scan saves there (PERF.md §6, the K7 exact row).
+EXACT_SCAN_PAIRS = 1 << 24
+
+
+def fp32_scan(nq: int, nk: int, d: int, fast: bool) -> bool:
+    """Whether K7 takes the FP32 scan (one query a thread) rather than the
+    tensor-core filter (csrc/best_match.cu): the fast mode past D = 16,
+    which the filter's one k-chunk does not hold, and the exact mode at
+    D = 10 on fewer than ``EXACT_SCAN_PAIRS`` pairs."""
+    return d > 16 if fast else d == 10 and nq * nk < EXACT_SCAN_PAIRS
+
+
 def best_match_cuda(queries, q_mask, db, db_mask, fast: bool = False, survivors=None):
     """Launch K7. queries (Q, D) and db (K, D) float32, masks bool, contiguous
     on one CUDA device; K >= 1, D <= 32. ``survivors``, a (1,) int64 tensor
-    on the same device or None: the fast mode at D <= 16 adds to it the
-    (query, row) pairs its tensor-core filter could not rule out and
-    rescored exactly (csrc/best_match.cu); nothing else writes it."""
+    on the same device or None: the tensor-core scan adds to it the (query,
+    row) pairs its filter could not rule out and rescored with the plain key,
+    in either mode; the FP32 scan (``fp32_scan``) rescores nothing and leaves
+    it alone."""
     nq, d = queries.shape
     nk = db.shape[0]
     dev = _lib.cuda_device(queries)
@@ -168,12 +196,10 @@ def best_match_cuda(queries, q_mask, db, db_mask, fast: bool = False, survivors=
     _lib.check(db_mask, "db_mask", torch.bool, (nk,), dev)
     if survivors is not None:
         _lib.check(survivors, "survivors", torch.int64, (1,), dev)
-    # Enough (128-query tile, database split) CTAs to fill the card; the fast
-    # mode's tensor-core scan takes 256 queries a CTA over the same splits.
-    q_tiles = max(1, -(-nq // _TQ))
-    splits = max(1, min(-(-nk // _TK), -(-2048 // q_tiles)))
+    splits, _ = split_geometry(nq, nk)
     part_key = torch.empty((splits, nq), dtype=torch.int64, device=dev)
-    seed = torch.empty((nq,), dtype=torch.int32, device=dev) if fast and d <= 16 else None
+    seed = (None if fp32_scan(nq, nk, d, fast)
+            else torch.empty((nq,), dtype=torch.int32, device=dev))
     dist = torch.empty((nq,), dtype=torch.float32, device=dev)
     idx = torch.empty((nq,), dtype=torch.int32, device=dev)
     _lib.launch(

@@ -24,7 +24,7 @@ could take.
   * A multiply that feeds an add counts once (``--fmad=false`` builds issue
     both; that issue count is a design's, not the bound).
   * A product the tensor cores can carry counts at their rate, also where an
-    exact re-selection follows (K7's fast mode does that). The per-pair work
+    exact re-selection follows (K7 does that in both modes). The per-pair work
     no unit can skip, one compare a pair and reduction, counts on the CUDA
     cores.
   * Bytes: each input read once, each output written once.
@@ -254,12 +254,11 @@ def linearize_model(n: int) -> KernelModel:
 
 def matcher_model(q: int, k: int, d: int, precision: str = "highest") -> KernelModel:
     """K7, the top-1 of Q queries against K rows: the gram 2 Q K D on the
-    tensor cores and one compare a pair, in both precisions (the exact mode
-    re-selects what a tensor-core filter leaves, as the fast mode does, so
-    one floor holds both); queries, rows and masks in, a (distance, index) a
-    query out. Only the name differs: the exact kernel runs its products on
-    the CUDA cores, so its ``mfu`` reads how far it is from a tensor-core
-    design."""
+    tensor cores and one compare a pair, in both precisions (each mode
+    filters on a tensor-core gram, the exact mode's of bf16 split terms, and
+    re-selects with the plain key among the rows the filter leaves, so one
+    floor holds both); queries, rows and masks in, a (distance, index) a
+    query out. Only the name differs."""
     return KernelModel(name="matcher_fast" if precision == "fast" else "matcher",
                        tc_flops=2.0 * q * k * d, fp32_ops=q * k + (q + k) * d,
                        hbm_bytes=4.0 * d * (q + k) + q + k + 8.0 * q)

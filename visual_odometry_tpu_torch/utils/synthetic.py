@@ -248,3 +248,158 @@ def generate_match_ties(rng: np.random.Generator, num_queries: int, num_rows: in
     db[bad[4:], 2] = np.inf
     q_mask = rng.uniform(size=num_queries) > 0.05
     return q, q_mask, db, db_mask
+
+
+def exact_keys(q: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """The exact matcher's unclamped key ``(|q|^2 + |k|^2) - 2 q.k`` in
+    float32, each product and sum rounded in descriptor order as K7's plain
+    version computes it; q and k broadcast over their leading axes."""
+    with np.errstate(over="ignore", invalid="ignore"):
+        qn, n, dot = q[..., 0] * q[..., 0], k[..., 0] * k[..., 0], q[..., 0] * k[..., 0]
+        for i in range(1, q.shape[-1]):
+            qn = qn + q[..., i] * q[..., i]
+            n = n + k[..., i] * k[..., i]
+            dot = dot + q[..., i] * k[..., i]
+        return (qn + n) - np.float32(2.0) * dot
+
+
+def _negative_pair(rng: np.random.Generator, dim: int, tries: int = 200):
+    """A row r and two rows a few float32 ulps from it whose exact keys to
+    the query r are both negative and differ, the less negative first; None
+    if ``tries`` draws of r find none."""
+    for _ in range(tries):
+        r = rng.uniform(-1.0, 1.0, dim).astype(np.float32)
+        cands = np.repeat(r[None], 64, axis=0)
+        bits = cands.view(np.int32)
+        for _ in range(2):   # two components of each candidate moved by -3..3 ulps
+            steps = rng.integers(-3, 4, 64).astype(np.int32)
+            bits[np.arange(64), rng.integers(0, dim, 64)] += steps
+        v = exact_keys(r[None], cands)
+        neg = np.unique(v[v < 0])
+        if neg.size >= 2:
+            return r, cands[np.flatnonzero(v == neg[-1])[0]], cands[np.flatnonzero(v == neg[0])[0]]
+    return None
+
+
+def generate_exact_match_ties(rng: np.random.Generator, num_queries: int, num_rows: int,
+                              dim: int = 10):
+    """A top-1 problem built to trip an exact matcher that rules rows out on
+    a tensor-core gram of bf16 split terms (K7's exact mode):
+    (queries, q_mask, db, db_mask) as numpy arrays.
+
+    Traps, by turns, each at a free place in the database while half the
+    queries last (a trap that finds no room is left out):
+      - ulp pair: rows j, j + 1 equal but one component one float32 ulp apart
+        (they differ only past a bf16 split's mid term); queries: both rows;
+      - negative pair: rows j, j + 1 a few ulps from a row r, whose float32
+        keys to the query r are both negative and differ, row j + 1's the
+        more negative (the exact mode takes j + 1; a key clamped at 0, as the
+        fast mode's, ties them and takes j); query: r;
+      - duplicates: row j copied to j + 256 (one tile on) and to j + S (one
+        split of K7's grid on, ``matcher_kernel.split_geometry``) where that
+        differs and fits; queries: the row, and the row plus N(0, 1e-3);
+      - tiny: rows j and j + 3 with every component of magnitude in
+        [2^-133, 2^-118], bf16's subnormal edge (their squares vanish in
+        float32: a tiny query's keys to every tiny row are 0, and the first
+        one wins), and row j + 5, a row whose first three components are
+        tiny; queries: a tiny one, and row j + 5 plus N(0, 1e-3) on its
+        other components;
+      - huge: row j with one component near +-1e19 (norm ~1e38, finite: every
+        query's key to it is ~1e38) and row j + 1 with one near 3e19 (norm
+        inf: it never wins); query: one with a component near -2e19, whose
+        |q|^2 overflows (no row wins: index 0). A live query of finite norm
+        near 1e38 is left out: a bound relative to |q|^2 + |k|^2 rules out
+        none of its rows, so it would rescore the whole database.
+    The other queries are live unplanted rows plus N(0, 1e-3). A tenth of the
+    unplanted rows is masked and holds NaN or inf; eight other live rows
+    hold a NaN or an inf (they never win); a twentieth of the queries is
+    masked."""
+    from ..ops.kernels.matcher_kernel import split_geometry
+
+    nq, nk, d = num_queries, num_rows, dim
+    _, split = split_geometry(nq, nk)
+    db = rng.uniform(-1.0, 1.0, (nk, d)).astype(np.float32)
+    q = np.zeros((nq, d), np.float32)
+    planted = np.zeros(nk, bool)
+
+    def tiny(shape):
+        mag = np.exp2(rng.uniform(-133.0, -118.0, shape))
+        return (mag * rng.choice([-1.0, 1.0], shape)).astype(np.float32)
+
+    def place(offsets):
+        """A row j with j + every offset free and in range; marks them planted."""
+        span = max(offsets)
+        if span >= nk:
+            return None
+        for _ in range(64):
+            j = int(rng.integers(0, nk - span))
+            rows = [j + o for o in offsets]
+            if not planted[rows].any():
+                planted[rows] = True
+                return j
+        return None
+
+    nxt, trap = 0, 0
+    while nxt + 2 <= nq // 2 and trap < 5 * nq:
+        kind, trap = trap % 5, trap + 1
+        noise = rng.normal(0.0, 1e-3, d).astype(np.float32)
+        if kind == 0:
+            j = place([0, 1])
+            if j is None:
+                continue
+            c = int(rng.integers(0, d))
+            db[j + 1] = db[j]
+            db[j + 1, c] = np.nextafter(db[j, c], np.float32(np.inf))
+            q[nxt], q[nxt + 1] = db[j], db[j + 1]
+            nxt += 2
+        elif kind == 1:
+            pair = _negative_pair(rng, d)
+            j = None if pair is None else place([0, 1])
+            if j is None:
+                continue
+            q[nxt], db[j], db[j + 1] = pair
+            nxt += 1
+        elif kind == 2:
+            offsets = [0, 256] + ([split] if 256 < split < nk else [])
+            j = place(offsets)
+            if j is None:
+                continue
+            for o in offsets[1:]:
+                db[j + o] = db[j]
+            q[nxt], q[nxt + 1] = db[j], db[j] + noise
+            nxt += 2
+        elif kind == 3:
+            j = place([0, 3, 5])
+            if j is None:
+                continue
+            db[j], db[j + 3] = tiny(d), tiny(d)
+            few = min(3, d - 1)
+            db[j + 5, :few] = tiny(few)
+            q[nxt] = tiny(d)
+            q[nxt + 1] = db[j + 5] + np.where(np.arange(d) < few, 0.0, noise).astype(np.float32)
+            nxt += 2
+        else:
+            j = place([0, 1])
+            if j is None:
+                continue
+            c = int(rng.integers(0, d))
+            db[j, c] = np.float32(rng.choice([-1.0, 1.0]) * rng.uniform(0.9e19, 1.1e19))
+            db[j + 1, int(rng.integers(0, d))] = np.float32(3e19)
+            q[nxt] = rng.uniform(-1.0, 1.0, d).astype(np.float32)
+            q[nxt, int(rng.integers(0, d))] = np.float32(-rng.uniform(1.9e19, 2.1e19))
+            nxt += 1
+    free = np.flatnonzero(~planted)
+    db_mask = np.ones(nk, bool)
+    db_mask[free[rng.uniform(size=free.size) < 0.1]] = False
+    live = np.flatnonzero(db_mask & ~planted)
+    picks = live[rng.integers(0, live.size, nq - nxt)]
+    q[nxt:] = db[picks] + rng.normal(0.0, 1e-3, (nq - nxt, d)).astype(np.float32)
+    masked = np.flatnonzero(~db_mask)
+    db[masked] = np.nan
+    db[masked[::3]] = np.inf
+    bad = np.setdiff1d(live, picks)
+    bad = bad[rng.permutation(bad.size)[:8]]
+    db[bad[:4], 0] = np.nan
+    db[bad[4:], d - 1] = np.inf
+    q_mask = rng.uniform(size=nq) > 0.05
+    return q, q_mask, db, db_mask
