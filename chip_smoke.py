@@ -98,7 +98,25 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      iterations, packed and unpacked, with the K9/K10 launch counts reckoned
      from the code path;
   12. path G: K11 through its public entry point at N = 8192 beside
-     ops.picp.linearize.
+     ops.picp.linearize;
+  13. path I: the multi-device forms (parallel/mesh) through their entry
+     points, in a world of one NCCL rank (every mesh 1 x 1) and then in a
+     world of 4 ranks sharing the card over gloo (their collectives staged
+     through the host), started by parallel.mesh.run_local: the sharded
+     matcher (path C's 1,024 queries x 2^20 rows, 4 x 2^18 in the shared
+     world, and tests/test_parallel_matcher.py's cross-block cases), dp
+     serving (path E's 64 sequences, 16 a rank; 8 in the world of one), sp
+     chunking (path H's 4 chunks, one a rank) and the world of one's
+     sparse-BA step, each bit for bit against its unsharded call on the
+     card; sparse BA over 4 lm ranks (path F(2)'s problem, packed, 3 LM
+     steps x 64 CG; chi falls; the first step at compare_wide_sparse_ba's
+     tolerances against the unsharded step) and dense BA over a (2, 2) mesh
+     (path A's dataset, a batch of 2 copies; 2e-3, chi 1e-3 relative,
+     tests/test_bundle_adjustment.py). Every rank launches the kernels of
+     the work it owns (K7; K1-K3 and K8; K9 and K10 in the reckoned
+     counts); {"path_i": ...} gives each check's wall time a rank, the
+     transport and the bytes staged. Four processes on one card: no scaling
+     figure.
 ``python3 chip_smoke.py --stages`` instead runs the entry points of paths B, C,
 D, E and H and one sparse-BA step of path F(2) in each layout inside
 ``profiling.stage_times`` and prints the time of each step the
@@ -166,6 +184,8 @@ PATH_H = {"match_pairs": 3, "join_candidates": 1, "gather_rows": K3_PATH_LAUNCHE
           "track_frames_batched": 1, "track_frames": 0}
 CHUNK_RATIO_TOL = 0.05   # each frame's translation ratio to serial path B, about their median
 BA_POSES, BA_LANDMARKS, BA_STEPS, BA_CG = 512, 100_000, 3, 64
+MESH_SHARDS = 4            # path I: ranks sharing the card over gloo
+PATH_I_ONE_SEQUENCES = 8   # path I: path E's sequences the world of one serves
 MOUNT_V = (0.05, -0.1, 0.02, 0.01, -0.02, 0.015)   # a non-identity camera mount, Euler chart
 
 
@@ -2049,6 +2069,336 @@ def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1
     return report
 
 
+# --------------------------------------------------------------------------
+# Path I: the multi-device forms (parallel/mesh) in two worlds on the card
+# --------------------------------------------------------------------------
+
+
+def path_i_match_cases(nq: int, nk: int):
+    """{name: (queries, q_mask, db, db_mask)} as numpy: path C's kind of
+    problem (match_problem) and tests/test_parallel_matcher.py's two
+    cross-block cases (the winner in the last block, every block holding a
+    decoy; a duplicate in blocks 0 and 2, the first winning) at 64 rows."""
+    q, q_mask, db, db_mask = (x.numpy() for x in match_problem(nq, nk, "cpu")[0])
+    last = np.full((64, 10), 5.0, np.float32)
+    last[7::8] = 1.0
+    last[-1] = 0.02
+    tie = np.full((64, 10), 3.0, np.float32)
+    tie[[5, 37]] = 0.0
+    one = (np.zeros((1, 10), np.float32), np.ones(1, bool))
+    return {"map": (q, q_mask, db, db_mask), "last_block": (*one, last, np.ones(64, bool)),
+            "tie": (*one, tie, np.ones(64, bool))}
+
+
+def digest(nest) -> str:
+    """SHA-256 over the dtype, shape and bytes of every tensor of a nest of
+    tensors (tuples and NamedTuples of them), in order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            t = x.detach().cpu().contiguous()
+            h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+            h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+        else:
+            for y in x:
+                walk(y)
+
+    walk(nest)
+    return h.hexdigest()
+
+
+def path_i_rank(inputs: dict) -> dict:
+    """One rank of a path I world: every check of ``inputs`` through the
+    entry points, on ``inputs["device"]``, over an ``lm`` line and a (world,
+    1) ``dp`` mesh spanning the whole world (and a (2, 2) mesh for dense BA).
+    Returns each check's output (on the CPU; for a check held bit for bit,
+    its digest), this rank's kernel launches in it and its wall seconds, the
+    transport and the bytes the meshes staged through the host."""
+    import torch
+
+    from visual_odometry_tpu_torch.ops.kernels import _lib
+    from visual_odometry_tpu_torch.parallel import bundle_adjustment, matcher, multiseq
+    from visual_odometry_tpu_torch.parallel import mesh as mesh_mod
+    from visual_odometry_tpu_torch.parallel import posegraph, sparse_ba
+    from visual_odometry_tpu_torch.utils import synthetic
+
+    n = torch.distributed.get_world_size()
+    line = mesh_mod.single_axis_mesh(name="lm", device=inputs["device"])
+    tall = mesh_mod.make_mesh(dp_size=n, device=inputs["device"])
+    meshes = [line, tall]
+    dev = line.device
+    camera = synthetic.deep_camera(device=dev)
+    report = {"backend": line.backend, "checks": {}}
+
+    def card(x):
+        return torch.from_numpy(x).to(dev)
+
+    def cpu(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        items = [cpu(y) for y in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+
+    def check(name, fn, whole: bool = False):
+        """Run one check; keep its output's digest, or with ``whole`` the output."""
+        sync(dev)
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        report["checks"][name] = {"seconds": time.perf_counter() - t0,
+                                  "output": cpu(out) if whole else digest(out),
+                                  "launches": {k: v for k, v in _lib.launches.items() if v}}
+
+    for name, (q, q_mask, db, db_mask) in inputs["match"].items():
+        check("matcher_" + name, lambda: matcher.sharded_best_match(
+            line, matcher.shard_rows(line, torch.from_numpy(db)),
+            matcher.shard_rows(line, torch.from_numpy(db_mask)), card(q), card(q_mask)))
+    check("dp", lambda: multiseq.run_sequences_batched(
+        camera, inputs["serve_config"], *(card(x) for x in inputs["serving"]), mesh=tall))
+    check("sp", lambda: posegraph.run_sequence_chunked(
+        camera, inputs["config"], *(card(x) for x in inputs["path_b"]), num_chunks=CHUNKS,
+        overlap=CHUNK_OVERLAP, mesh=tall))
+
+    k, poses, landmarks, *obs = inputs["ba"]
+    *shards, l_per, degree = sparse_ba.partition_observations_packed(n, len(landmarks), *obs)
+    padded = np.zeros((n * l_per, 3), np.float32)
+    padded[:len(landmarks)] = landmarks
+    work = sparse_ba.SparseBAProblem(card(poses), *(
+        matcher.shard_rows(line, torch.from_numpy(x)) for x in (padded, *shards)))
+    step = sparse_ba.make_sharded_sparse_ba_step(line, cg_iterations=BA_CG, cg_tolerance=0.0,
+                                                 lm_degree=degree)
+
+    def sparse_steps():
+        frames = sparse_ba.plan_frames(work)     # K9's plan of this rank's block, once a run
+        w, chis, first = work, [], None
+        for i in range(inputs["ba_steps"]):
+            w, stats = step(card(k), w, frames)
+            chis.append(stats.chi)
+            if i == 0:
+                first = (w.poses, mesh_mod.all_gather(line, w.landmarks, "lm")[:len(landmarks)],
+                         stats.chi, stats.num_obs)
+        return first, torch.stack(chis)
+
+    check("sparse_ba", sparse_steps, whole=True)
+    if "dense_ba" in inputs:
+        square = mesh_mod.make_mesh(dp_size=2, device=inputs["device"])
+        meshes.append(square)
+        i, j = square.axis_index("dp"), square.axis_index("lm")
+        k_d, batch = inputs["dense_ba"]
+        rows = batch[1].shape[1] // square.shape["lm"]
+        cols = slice(j * rows, (j + 1) * rows)
+        block = bundle_adjustment.BAProblem(
+            card(batch[0][i:i + 1]), card(batch[1][i:i + 1, cols]),
+            card(np.ascontiguousarray(batch[2][i:i + 1, :, cols])),
+            card(np.ascontiguousarray(batch[3][i:i + 1, :, cols])))
+        check("dense_ba", lambda: bundle_adjustment.make_sharded_ba_step(square, damping=0.1)(
+            card(k_d), block), whole=True)
+        report["dense_ba_block"] = (i, j, rows)
+    report["staged_bytes"] = sum(m.staged_bytes for m in meshes)
+    return report
+
+
+def path_i_dense_problem(work_dir: str, device):
+    """Path A's dataset tracked on the card and turned into a dense BA
+    problem as refine_trajectory builds it, landmarks padded to an even
+    count, as a batch of 2 identical copies (tests/test_bundle_adjustment.py:
+    99-105): (camera matrix, (poses, landmarks, observations, obs_mask))."""
+    import torch
+
+    from visual_odometry_tpu_torch.models import pipeline, refinement
+    from visual_odometry_tpu_torch.models.landmark_map import compact
+    from visual_odometry_tpu_torch.ops.camera import Camera
+    from visual_odometry_tpu_torch.parallel import mesh as mesh_mod
+    from visual_odometry_tpu_torch.utils import dataset_gen, io
+    from visual_odometry_tpu_torch.utils.config import DEFAULT_CONFIG
+
+    data = os.path.join(work_dir, "data_i")
+    dataset_gen.generate_dataset(data, num_frames=40, num_landmarks=400, seed=1)
+    params = io.load_camera_params(os.path.join(data, "camera.dat"))
+    camera = Camera.create(params.camera_matrix, rows=params.height, cols=params.width,
+                           z_near=params.z_near, z_far=params.z_far, device=device)
+    seq = io.load_sequence(data, DEFAULT_CONFIG.n_slots)
+    traj, map_state, _ = pipeline.run_sequence(
+        camera, DEFAULT_CONFIG, *(torch.from_numpy(x).to(device)
+                                  for x in (seq.points, seq.appearances, seq.mask)))
+    map_pts, map_apps = compact(map_state)
+    obs, obs_mask = refinement.build_observations(seq.points, seq.appearances, seq.mask, map_apps)
+    arrays = (refinement.absolute_from_relative(traj.cpu().numpy()),
+              mesh_mod.pad_to_multiple(map_pts, 0, 2)[0], mesh_mod.pad_to_multiple(obs, 1, 2)[0],
+              mesh_mod.pad_to_multiple(obs_mask, 1, 2)[0])
+    return (np.asarray(params.camera_matrix, np.float32),
+            tuple(np.repeat(x[None], 2, axis=0) for x in arrays))
+
+
+def same_outputs(a, b) -> bool:
+    """Whether two nests of tensors (tuples of tensors and NamedTuples) hold the same bits."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        b = b.cpu()
+        return same_bits((a, b)) if a.is_floating_point() else torch.equal(a, b)
+    return len(a) == len(b) and all(same_outputs(x, y) for x, y in zip(a, b))
+
+
+def run_path_i(camera, config, serving, path_b, ba_problem, work_dir: str, device, smi: str):
+    """The multi-device forms on the card in two worlds of ranks started by
+    ``parallel.mesh.run_local``: one NCCL rank (every mesh 1 x 1), then
+    4 ranks sharing the card over gloo (NCCL refuses two ranks a card), their
+    collectives staged through the host. Each check runs an entry point over
+    its mesh on every rank and is held to its unsharded call on this card:
+    the sharded matcher (path C's 1,024 queries x 2^20 rows, and the
+    cross-block cases of tests/test_parallel_matcher.py), dp serving (path
+    E's batch; 8 of its sequences in the world of one), sp chunking (path H)
+    and the world of one's sparse-BA step bit for bit; the 4 ranks' sparse BA
+    (F(2), 3 LM steps x 64 CG, packed) at compare_wide_sparse_ba's
+    tolerances, chi falling; dense BA over a (2, 2) mesh at
+    tests/test_bundle_adjustment.py's. Every rank must launch each kernel of
+    the work it owns: K7, K1-K3 and K8, K9 and K10."""
+    import torch
+
+    from visual_odometry_tpu_torch.ops import matching
+    from visual_odometry_tpu_torch.ops.kernels import _lib
+    from visual_odometry_tpu_torch.parallel import bundle_adjustment, multiseq, posegraph
+    from visual_odometry_tpu_torch.parallel import mesh as mesh_mod
+    from visual_odometry_tpu_torch.parallel import sparse_ba
+
+    serve_config, seqs = serving
+    match = path_i_match_cases(1024, 1 << 20)
+    k, problem, n_live = ba_problem
+    ba_arrays = tuple(x.cpu().numpy() for x in (k, problem.poses, problem.landmarks,
+                                                problem.frame_idx, problem.lm_idx, problem.uv,
+                                                problem.obs_mask))
+    common = {"config": config, "serve_config": serve_config, "path_b": path_b,
+              "ba": ba_arrays, "device": torch.device(device).type}
+    inputs = {
+        "one": {**common, "match": {"map": match["map"]},
+                "serving": tuple(x[:PATH_I_ONE_SEQUENCES].cpu().numpy() for x in seqs),
+                "ba_steps": 1},
+        "shared": {**common, "match": match, "serving": tuple(x.cpu().numpy() for x in seqs),
+                   "ba_steps": BA_STEPS, "dense_ba": path_i_dense_problem(work_dir, device)}}
+
+    # The unsharded calls on this card.
+    def card(x):
+        return torch.from_numpy(x).to(device)
+
+    ref = {}
+    for name, (q, q_mask, db, db_mask) in match.items():
+        dist, idx = matching.best_match(card(q), card(q_mask), card(db), card(db_mask))
+        accept = card(q_mask) & (dist < torch.tensor(0.1, device=device) ** 2)
+        ref["matcher_" + name] = (torch.where(accept, idx, -1), dist)
+    ref["dp"] = multiseq.run_sequences_batched(camera, serve_config, *seqs)
+    ref["dp_one"] = multiseq.run_sequences_batched(
+        camera, serve_config, *(x[:PATH_I_ONE_SEQUENCES] for x in seqs))
+    ref["sp"] = posegraph.run_sequence_chunked(camera, config, *(card(x) for x in path_b),
+                                               num_chunks=CHUNKS, overlap=CHUNK_OVERLAP)
+    packed, degree = sparse_ba.pack_problem(problem)
+    kw = dict(cg_iterations=BA_CG, cg_tolerance=0.0, lm_degree=degree)
+    ref_ba, ref_stats = sparse_ba.sparse_ba_step(k, packed, frames=sparse_ba.plan_frames(packed),
+                                                 **kw)
+    cpu64 = sparse_ba.SparseBAProblem(*(x.cpu() for x in packed))
+    cpu64 = cpu64._replace(poses=cpu64.poses.double(), landmarks=cpu64.landmarks.double(),
+                           uv=cpu64.uv.double())
+    exact, _ = sparse_ba.sparse_ba_step(k.cpu().double(), cpu64, **kw)
+    t_tol = max(1e-4, float((ref_ba.poses[:, :3, 3].cpu().double()
+                             - exact.poses[:, :3, 3]).abs().max()))
+    k_d, dense = inputs["shared"]["dense_ba"]
+    ref_dense = bundle_adjustment.ba_step(card(k_d), bundle_adjustment.BAProblem(
+        *(card(np.ascontiguousarray(x[0])) for x in dense)), damping=0.1)
+    sync(device)
+    torch.cuda.empty_cache()
+
+    report, launches = {"card": smi}, {name: 0 for name in KERNELS}
+    for world, ranks, backend in (("one", 1, "nccl"), ("shared", MESH_SHARDS, "gloo")):
+        t0 = time.perf_counter()
+        results = mesh_mod.run_local(path_i_rank, ranks, inputs[world], backend=backend,
+                                     device=device, timeout=600.0)
+        label = f"path I ({world})"
+        summary = {"ranks": ranks, "world_seconds": time.perf_counter() - t0,
+                   "transport": backend if backend == "nccl" else "gloo, host-staged",
+                   "staged_bytes": [r["staged_bytes"] for r in results], "checks": {}}
+        for name in results[0]["checks"]:
+            per_rank = [r["checks"][name] for r in results]
+            row = {"seconds": [c["seconds"] for c in per_rank],
+                   "launches": [c["launches"] for c in per_rank]}
+            for c in per_rank:
+                for kernel, v in c["launches"].items():
+                    launches[kernel] += v
+            outs = [c["output"] for c in per_rank]
+            if name.startswith("matcher") or name in ("dp", "sp"):
+                want = digest(ref["dp_one" if name == "dp" and world == "one" else name])
+                require(all(o == want for o in outs),
+                        f"{label} {name}: differs from the unsharded call")
+                row["bitwise"] = True
+                need = ({"best_match": 1} if name.startswith("matcher") else
+                        {"match_pairs": 2 if name == "dp" else 3, "join_candidates": 1,
+                         "gather_rows": K3_PATH_LAUNCHES, "track_frames_batched": 1})
+            elif name == "sparse_ba":
+                steps = inputs[world]["ba_steps"]
+                need = {"take_table": steps * (2 + BA_CG), "segment_sum": steps * (4 + BA_CG)}
+                chis = [float(x) for x in outs[0][1]]
+                require(all(np.isfinite(chis)) and (steps == 1 or chis[-1] < chis[0]),
+                        f"{label} sparse BA: chi did not fall: {chis}")
+                (poses, lms, chi, nobs), _ = outs[0]
+                require(all(same_outputs(o[0], outs[0][0]) for o in outs),
+                        f"{label} sparse BA: the ranks' replicated results differ")
+                require(int(nobs) == int(ref_stats.num_obs), f"{label} sparse BA: num_obs")
+                if world == "one":
+                    require(same_outputs((poses, lms, chi), (ref_ba.poses, ref_ba.landmarks,
+                                                             ref_stats.chi)),
+                            f"{label} sparse BA: differs from the unsharded step")
+                    row["bitwise"] = True
+                else:
+                    diff = (poses - ref_ba.poses.cpu()).abs()
+                    rot, tr = float(diff[:, :3, :3].max()), float(diff[:, :3, 3].max())
+                    lm_err = float((lms - ref_ba.landmarks.cpu()).abs().max())
+                    chi_rel = abs(float(chi) - float(ref_stats.chi)) / float(ref_stats.chi)
+                    require(rot <= 1e-4 and tr <= t_tol and lm_err <= 5e-4 and chi_rel <= 1e-4,
+                            f"{label} sparse BA: the first step differs from the unsharded one "
+                            f"(rotations {rot}, translations {tr} against {t_tol}, landmarks "
+                            f"{lm_err}, chi {chi_rel} relative)")
+                    row.update(rotation_max_abs_diff=rot, translation_max_abs_diff=tr,
+                               translation_tolerance=t_tol, landmark_max_abs_diff=lm_err,
+                               chi_rel_diff=chi_rel)
+                row.update(chi=chis, observations=n_live)
+            else:   # dense_ba
+                need = {}
+                ref_p, ref_s = ref_dense
+                err = chi_rel = 0.0
+                for r, (out, stats) in zip(results, outs):
+                    _, j, rows = r["dense_ba_block"]
+                    cols = slice(j * rows, (j + 1) * rows)
+                    for got, want in ((out.poses[0], ref_p.poses.cpu()),
+                                      (out.landmarks[0], ref_p.landmarks.cpu()[cols])):
+                        require(bool(torch.isclose(got, want, rtol=2e-3, atol=2e-3).all()),
+                                f"{label} dense BA: a block differs from ba_step beyond 2e-3")
+                        err = max(err, float((got - want).abs().max()))
+                    chi_rel = max(chi_rel, abs(float(stats.chi[0]) - float(ref_s.chi))
+                                  / float(ref_s.chi))
+                    require(int(stats.num_obs[0]) == int(ref_s.num_obs),
+                            f"{label} dense BA: num_obs")
+                require(chi_rel <= 1e-3, f"{label} dense BA: chi {chi_rel} relative from ba_step")
+                row.update(max_abs_diff=err, chi_rel_diff=chi_rel)
+            for r, c in enumerate(row["launches"]):
+                require(all(c.get(kernel, 0) == v for kernel, v in need.items()),
+                        f"{label} {name}: rank {r} launched {c}, reckoned {need}")
+            summary["checks"][name] = row
+        report[world] = summary
+    report["launches"] = launches
+    print(json.dumps({"path_i": report}))
+    for world in ("one", "shared"):
+        s = report[world]
+        print(f"path I ({world}): {s['ranks']} rank(s) over {s['transport']} in "
+              f"{s['world_seconds']:.1f} s, " + ", ".join(
+                  f"{n} {max(c['seconds']):.3f} s" for n, c in s["checks"].items()))
+    return launches
+
+
 def demangled(text: str) -> str:
     """``text`` with its C++ symbols demangled by c++filt, where there is one."""
     tool = shutil.which("c++filt")
@@ -2176,6 +2526,7 @@ def main() -> int:
         launches["H"] = run_path_h(camera, config, pts, apps, masks, device, path_b_traj,
                                    path_b_fps)
         phase("path H", t0)
+        path_b = tuple(x.cpu().numpy() for x in (pts, apps, masks))
         del pts, apps, masks, planar_seq
         t0 = time.perf_counter()
         launches["E"] = run_path_e(camera, serving, device)
@@ -2186,6 +2537,10 @@ def main() -> int:
         t0 = time.perf_counter()
         launches["G"] = run_path_g(device)
         phase("path G", t0)
+        t0 = time.perf_counter()
+        launches["I"] = run_path_i(camera, config, serving[False], path_b, ba_problem, work,
+                                   device, smi)
+        phase("path I", t0)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -1079,3 +1079,103 @@ def test_roofline_fractions_on_the_card(dev):
     shares = [v for k, v in out.items() if k.endswith(("_roofline_fraction", "_mfu"))]
     assert len(shares) == 4 and all(0.0 < v <= 1.0 for v in shares)
     assert out["spec"]["name"] == torch.cuda.get_device_name(0)
+
+
+# --------------------------------------------------------------------------
+# The multi-device forms on the card (parallel/mesh): each rank imports this
+# module to find its body.
+# --------------------------------------------------------------------------
+
+
+def _mesh_match_inputs(nq: int = 256, nk: int = 1 << 16):
+    """Queries near rows of a random database (a tenth of the rows masked, NaN
+    in them), with an exact duplicate of row 5 in the last block."""
+    rng = np.random.default_rng(3)
+    db = rng.uniform(-1.0, 1.0, (nk, 10)).astype(np.float32)
+    q = (db[rng.permutation(nk)[:nq]] + rng.normal(0, 1e-3, (nq, 10))).astype(np.float32)
+    db_mask = rng.uniform(size=nk) > 0.1
+    db_mask[[5, nk - 1]] = True
+    db[nk - 1] = db[5]
+    q[0] = db[5]
+    db[~db_mask] = np.nan
+    return q, rng.uniform(size=nq) > 0.05, db, db_mask
+
+
+def _mesh_serving_inputs():
+    seqs = [synthetic.generate_tracking_sequence(np.random.default_rng(7 + i), 12, 64)
+            for i in range(4)]
+    return tuple(np.stack([s[k] for s in seqs]) for k in range(3))
+
+
+def _sharded_match(mesh, q, qm, db, dbm):
+    from visual_odometry_tpu_torch.parallel import matcher
+
+    return matcher.sharded_best_match(
+        mesh, *(matcher.shard_rows(mesh, torch.from_numpy(x)) for x in (db, dbm)),
+        *(matcher.replicate(mesh, torch.from_numpy(x)) for x in (q, qm)))
+
+
+def _world_of_one_rank(match, serving):
+    from visual_odometry_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh = mesh_mod.make_mesh(1, device="cuda")
+    cfg = VOConfig(n_slots=64, map_capacity=256, gn_iterations=30)
+    cam = synthetic.deep_camera(device=mesh.device)
+    served = multiseq.run_sequences_batched(
+        cam, cfg, *(torch.from_numpy(x).to(mesh.device) for x in serving), mesh=mesh)
+    return dict(backend=mesh.backend, staged=mesh.staged_bytes, served=served,
+                match=_sharded_match(mesh, *match))
+
+
+def _shared_card_rank(match):
+    from visual_odometry_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh = mesh_mod.single_axis_mesh(name="lm", device="cuda", backend="gloo")
+    _lib.reset_launches()
+    out = _sharded_match(mesh, *match)
+    return dict(match=out, staged=mesh.staged_bytes, launches=_lib.launches["best_match"])
+
+
+def _unsharded_match(dev, q, qm, db, dbm):
+    from visual_odometry_tpu_torch.ops import matching
+
+    dist, idx = matching.best_match(*(torch.from_numpy(x).to(dev) for x in (q, qm, db, dbm)))
+    accept = torch.from_numpy(qm).to(dev) & (dist < torch.tensor(0.1, device=dev) ** 2)
+    return torch.where(accept, idx, -1).cpu(), dist.cpu()
+
+
+def test_world_of_one_nccl_rank_equals_unsharded(dev):
+    """A one-rank NCCL world: the sharded matcher (K7) and dp serving (K1-K3,
+    K8) on a 1 x 1 mesh equal their unsharded calls bit for bit."""
+    from visual_odometry_tpu_torch.parallel import mesh as mesh_mod
+
+    _lib.library()            # built here once; the rank only loads it
+    match, serving = _mesh_match_inputs(), _mesh_serving_inputs()
+    res, = mesh_mod.run_local(_world_of_one_rank, 1, match, serving, device="cuda",
+                              timeout=300.0)
+    assert res["backend"] == "nccl" and res["staged"] == 0
+    idx, dist = _unsharded_match(dev, *match)
+    assert torch.equal(res["match"][0], idx) and torch.equal(res["match"][1], dist)
+    assert int(idx[0]) == 5
+    cfg = VOConfig(n_slots=64, map_capacity=256, gn_iterations=30)
+    ref = multiseq.run_sequences_batched(synthetic.deep_camera(device=dev), cfg,
+                                         *(torch.from_numpy(x).to(dev) for x in serving))
+    got = [res["served"][0], *res["served"][1], *res["served"][2]]
+    want = [ref[0], *ref[1], *ref[2]]
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(got, want))
+
+
+def test_two_gloo_ranks_share_the_card_for_the_matcher(dev):
+    """Two ranks on one card over gloo (NCCL refuses two ranks a card): each
+    launches K7 on its half of the rows, the collectives run on host copies,
+    and the result equals one unsharded call bit for bit."""
+    from visual_odometry_tpu_torch.parallel import mesh as mesh_mod
+
+    _lib.library()
+    match = _mesh_match_inputs()
+    ranks = mesh_mod.run_local(_shared_card_rank, 2, match, backend="gloo", device="cuda",
+                               timeout=300.0)
+    idx, dist = _unsharded_match(dev, *match)
+    for res in ranks:
+        assert res["launches"] == 1 and res["staged"] > 0
+        assert torch.equal(res["match"][0], idx) and torch.equal(res["match"][1], dist)

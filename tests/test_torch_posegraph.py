@@ -23,6 +23,7 @@ application on a generated dataset: the evaluation metrics within 2e-3.
 
 import itertools
 import os
+import types
 import warnings
 
 import jax.numpy as jnp
@@ -304,9 +305,13 @@ def test_unobservable_stitch_scale_raises(rng):
 
 
 def test_mesh_raises(sequence):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A mesh whose sequence-parallel axis does not divide the chunk count
+    raises before any work (the sharded form itself:
+    tests/test_torch_sharded_tracking.py)."""
+    mesh = types.SimpleNamespace(shape={"dp": 4, "lm": 1}, axis_names=("dp", "lm"))
+    with pytest.raises(ValueError, match="the mesh axis 'dp' of size 4 does not divide 2 chunks"):
         tpg.run_sequence_chunked(tsyn.deep_camera(), VOConfig(**CFG), *_tensors(sequence),
-                                 num_chunks=2, mesh=object())
+                                 num_chunks=2, mesh=mesh)
 
 
 def _metrics(res):

@@ -12,6 +12,7 @@ trajectory and map: positions (relative translations and landmarks) within
 """
 
 import os
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -172,8 +173,13 @@ def test_run_vo_complete_with_refinement(data_dir, tmp_path, backend):
 
 
 def test_mesh_raises(tracked):
+    """Dense refinement steps a batch of one sequence, as the JAX package's
+    does: a mesh with a dp axis wider than 1, or none, raises before any work
+    (the sharded forms themselves: tests/test_torch_sharded_tracking.py)."""
     k, traj, map_state, seq = tracked
-    for fn in (tref.refine_trajectory, tref.refine_trajectory_sparse):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(k, traj, map_state, seq.points, seq.appearances, seq.mask, mesh=object(),
-               device="cpu")
+    for shape, message in (({"dp": 2, "lm": 2}, "does not divide the mesh's dp axis of size 2"),
+                           ({"lm": 4}, "mesh axes \\('lm',\\) have no axis 'dp'")):
+        mesh = types.SimpleNamespace(shape=shape, axis_names=tuple(shape))
+        with pytest.raises(ValueError, match=message):
+            tref.refine_trajectory(k, traj, map_state, seq.points, seq.appearances, seq.mask,
+                                   mesh=mesh, device="cpu")

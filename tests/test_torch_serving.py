@@ -18,6 +18,8 @@ kernel inputs: poses within 2e-3 (its serving-vs-vmap tolerance,
 tests/test_multiseq.py:66), counts and triangulation validity exact.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -160,10 +162,13 @@ def test_track_frames_batched_with_a_dead_sequence():
 
 
 def test_mesh_and_bad_shapes_raise(batch):
+    """Bad shapes raise, and so does a dp axis that does not divide the batch
+    (the sharded form itself: tests/test_torch_sharded_tracking.py)."""
     cam, cfg = tsyn.deep_camera(), VOConfig(**CFG)
     tensors = tuple(torch.from_numpy(x) for x in batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmulti.run_sequences_batched(cam, cfg, *tensors, mesh=object())
+    mesh = types.SimpleNamespace(shape={"dp": 2, "lm": 1}, axis_names=("dp", "lm"))
+    with pytest.raises(ValueError, match="'dp' of size 2 does not divide 3 sequences"):
+        tmulti.run_sequences_batched(cam, cfg, *tensors, mesh=mesh)
     with pytest.raises(ValueError, match="CUDA"):
         tmulti.run_sequences_batched(cam, cfg, *tensors, backend="cuda")
     with pytest.raises(ValueError, match="slots"):

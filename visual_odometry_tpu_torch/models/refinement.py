@@ -20,8 +20,12 @@ unchanged.
 ``refine_trajectory`` and ``refine_trajectory_sparse`` take numpy arrays and
 return numpy arrays, as the JAX package's do; the step runs on ``device``,
 which defaults to the CUDA card (``default_device()`` raises without one).
-A ``mesh`` (the landmark-sharded multi-device step) is not ported and raises
-``NotImplementedError``.
+With a ``mesh`` (``parallel/mesh``) every rank calls them with the same whole
+inputs: the landmarks are padded to a multiple of the ``lm`` axis and split
+over it, each rank steps its block on ``mesh.device``
+(``bundle_adjustment.make_sharded_ba_step`` on a batch of one sequence;
+``sparse_ba.make_sharded_sparse_ba_step`` on the packed shard layout), and
+every rank returns the whole result.
 """
 
 from __future__ import annotations
@@ -33,7 +37,9 @@ import torch
 
 from .. import default_device
 from ..parallel import bundle_adjustment as ba
+from ..parallel import mesh as mesh_mod
 from ..parallel import sparse_ba as sba
+from ..parallel.matcher import shard_rows
 from .landmark_map import LandmarkMap, compact
 
 
@@ -119,11 +125,10 @@ def build_observations_coo(
             seq_points.reshape(f * s, 2), mask)
 
 
-def _no_mesh(mesh) -> None:
+def _device(mesh, device) -> torch.device:
     if mesh is not None:
-        raise NotImplementedError(
-            "refinement over a mesh (the landmark-sharded multi-device BA step) is not "
-            "ported yet: ROADMAP.md queue 1 item 12")
+        return mesh.device
+    return torch.device(device) if device is not None else default_device()
 
 
 def refine_trajectory(
@@ -140,22 +145,46 @@ def refine_trajectory(
     device=None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, "ba.BAStats"]:
     """Dense BA over the whole sequence; returns (relative trajectory, map
-    points, map appearances, stats of the last step)."""
-    _no_mesh(mesh)
-    device = torch.device(device) if device is not None else default_device()
+    points, map appearances, stats of the last step). With ``mesh`` (a (dp,
+    lm) mesh whose dp axis has size 1: the batch is one sequence) the step
+    runs landmark-sharded over its ``lm`` axis."""
+    if mesh is not None:
+        step = ba.make_sharded_ba_step(mesh, damping=damping, kernel_threshold=kernel_threshold)
+        if mesh.shape["dp"] != 1:
+            raise ValueError(f"a batch of one sequence does not divide the mesh's dp axis of "
+                             f"size {mesh.shape['dp']}")
+    device = _device(mesh, device)
     map_pts, map_apps = compact(map_state)
     obs, obs_mask = build_observations(seq_points, seq_appearances, seq_mask, map_apps)
-    problem = ba.BAProblem(
-        poses=torch.from_numpy(absolute_from_relative(trajectory)).to(device),
-        landmarks=torch.from_numpy(map_pts).to(device),
-        observations=torch.from_numpy(obs).to(device),
-        obs_mask=torch.from_numpy(obs_mask).to(device),
-    )
     k = torch.as_tensor(np.asarray(camera_matrix, np.float32), device=device)
-    refined, stats = ba.refine(k, problem, num_iterations=num_iterations, damping=damping,
-                               kernel_threshold=kernel_threshold)
-    rel = relative_from_absolute(refined.poses.cpu().numpy())
-    return rel, refined.landmarks.cpu().numpy(), map_apps, stats
+    poses = torch.from_numpy(absolute_from_relative(trajectory)).to(device)
+    if mesh is None:
+        problem = ba.BAProblem(
+            poses=poses, landmarks=torch.from_numpy(map_pts).to(device),
+            observations=torch.from_numpy(obs).to(device),
+            obs_mask=torch.from_numpy(obs_mask).to(device))
+        refined, stats = ba.refine(k, problem, num_iterations=num_iterations, damping=damping,
+                                   kernel_threshold=kernel_threshold)
+        return (relative_from_absolute(refined.poses.cpu().numpy()),
+                refined.landmarks.cpu().numpy(), map_apps, stats)
+
+    l = map_pts.shape[0]
+    lms, _ = mesh_mod.pad_to_multiple(map_pts, 0, mesh.shape["lm"])
+    obs, _ = mesh_mod.pad_to_multiple(obs, 1, mesh.shape["lm"])
+    obs_mask, _ = mesh_mod.pad_to_multiple(obs_mask, 1, mesh.shape["lm"])
+
+    def columns(x):   # this rank's block of the landmark columns of (F, L_pad, ...)
+        return shard_rows(mesh, torch.from_numpy(x).transpose(0, 1)).transpose(0, 1)[None]
+
+    bp = ba.BAProblem(poses=poses[None], landmarks=shard_rows(mesh, torch.from_numpy(lms))[None],
+                      observations=columns(obs).contiguous(),
+                      obs_mask=columns(obs_mask).contiguous())
+    stats = None
+    for _ in range(num_iterations):
+        bp, stats = step(k, bp)
+    landmarks = mesh_mod.all_gather(mesh, bp.landmarks[0], "lm")[:l]
+    return (relative_from_absolute(bp.poses[0].cpu().numpy()), landmarks.cpu().numpy(), map_apps,
+            stats)
 
 
 def refine_trajectory_sparse(
@@ -176,9 +205,11 @@ def refine_trajectory_sparse(
     """Production-scale refinement: the sparse twin of
     :func:`refine_trajectory`. The observation join runs on the device
     (:func:`build_observations_coo`) and the step is ``parallel.sparse_ba``,
-    memory O(#observations)."""
-    _no_mesh(mesh)
-    device = torch.device(device) if device is not None else default_device()
+    memory O(#observations). With ``mesh`` the step runs over its ``lm``
+    axis on the packed shard layout
+    (``sparse_ba.partition_observations_packed``), K9's plan made once a run
+    on each rank's block."""
+    device = _device(mesh, device)
     map_pts, map_apps = compact(map_state)
 
     def dev(x, dtype=None):
@@ -187,12 +218,31 @@ def refine_trajectory_sparse(
     fi, li, uv, mask = build_observations_coo(
         dev(seq_points, np.float32), dev(seq_appearances, np.float32), dev(seq_mask, bool),
         dev(map_apps, np.float32))
-    problem = sba.SparseBAProblem(
-        poses=dev(absolute_from_relative(trajectory)), landmarks=dev(map_pts),
-        frame_idx=fi, lm_idx=li, uv=uv, obs_mask=mask)
-    refined, stats = sba.refine_sparse(
-        dev(camera_matrix, np.float32), problem, num_iterations=num_iterations, damping=damping,
-        kernel_threshold=kernel_threshold, cg_iterations=cg_iterations,
-        cg_tolerance=cg_tolerance)
-    rel = relative_from_absolute(refined.poses.cpu().numpy())
-    return rel, refined.landmarks.cpu().numpy(), np.asarray(map_apps), stats
+    k, poses = dev(camera_matrix, np.float32), dev(absolute_from_relative(trajectory))
+    if mesh is None:
+        problem = sba.SparseBAProblem(poses=poses, landmarks=dev(map_pts), frame_idx=fi,
+                                      lm_idx=li, uv=uv, obs_mask=mask)
+        refined, stats = sba.refine_sparse(
+            k, problem, num_iterations=num_iterations, damping=damping,
+            kernel_threshold=kernel_threshold, cg_iterations=cg_iterations,
+            cg_tolerance=cg_tolerance)
+        return (relative_from_absolute(refined.poses.cpu().numpy()),
+                refined.landmarks.cpu().numpy(), np.asarray(map_apps), stats)
+
+    n_lm, l = mesh.shape["lm"], map_pts.shape[0]
+    *shards, l_per, degree = sba.partition_observations_packed(
+        n_lm, l, *(x.cpu().numpy() for x in (fi, li, uv, mask)))
+    lms = np.zeros((n_lm * l_per, 3), np.float32)
+    lms[:l] = map_pts
+    work = sba.SparseBAProblem(poses, *(shard_rows(mesh, torch.from_numpy(x))
+                                        for x in (lms, *shards)))
+    step = sba.make_sharded_sparse_ba_step(
+        mesh, damping=damping, kernel_threshold=kernel_threshold, cg_iterations=cg_iterations,
+        cg_tolerance=cg_tolerance, lm_degree=degree)
+    frames = sba.plan_frames(work)
+    stats = None
+    for _ in range(num_iterations):
+        work, stats = step(k, work, frames)
+    landmarks = mesh_mod.all_gather(mesh, work.landmarks, "lm")[:l]
+    return (relative_from_absolute(work.poses.cpu().numpy()), landmarks.cpu().numpy(),
+            np.asarray(map_apps), stats)

@@ -26,17 +26,24 @@ landmark blocks. Pose updates use the tracking Euler chart
 No kernel of the JAX package runs here: the contractions and the (6F, 6F)
 solve are plain matrix products and ``torch.linalg`` calls, as the JAX
 package leaves them to XLA. Memory is O(F * L): use ``parallel/sparse_ba``
-past a few thousand landmarks. Not ported here: ``make_sharded_ba_step`` (the
-landmark-sharded multi-device step).
+past a few thousand landmarks.
+
+:func:`make_sharded_ba_step` runs the step over a (dp, lm) mesh: ``dp``
+splits a batch of independent sequences, ``lm`` the landmarks. Each rank
+assembles its landmark block's share of H_pp, b_p and the reduced system;
+those, chi and the count are summed over ``lm`` (the only collective), the
+pose system is solved alike on every rank, and landmarks back-substitute on
+their rank.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..ops import se3
+from . import mesh as mesh_mod
 
 
 class BAProblem(NamedTuple):
@@ -218,6 +225,59 @@ def ba_step(
     new_poses = se3.v2t_euler(dx_p) @ problem.poses
     new_landmarks = problem.landmarks + dx_l
     return problem._replace(poses=new_poses, landmarks=new_landmarks), stats
+
+
+def make_sharded_ba_step(
+    mesh: mesh_mod.Mesh,
+    damping: float = 1.0,
+    kernel_threshold: float = 10000.0,
+    lm_axis: str = "lm",
+    dp_axis: Optional[str] = "dp",
+):
+    """The multi-device BA step over a (dp, lm) mesh:
+    ``step(camera_matrix, problem) -> (problem, stats)``, called by every rank.
+
+    ``problem`` carries a leading batch axis of sequences and holds this
+    rank's blocks: its ``dp_axis`` block of the batch (the whole batch when
+    ``dp_axis`` is None) and, of each sequence, its ``lm_axis`` block of the
+    landmarks and of the observation columns (poses (B', F, 4, 4), landmarks
+    (B', L', 3), observations (B', F, L', 2), obs_mask (B', F, L')). Returns
+    the same blocks stepped and stats of shape (B',), alike over ``lm``. The
+    sequences of the block run one after another (JAX: ``vmap``)."""
+    for name in (lm_axis, dp_axis):
+        if name is not None and name not in mesh.axis_names:
+            raise ValueError(f"mesh axes {mesh.axis_names} have no axis {name!r}")
+
+    def step(camera_matrix, problem: BAProblem) -> Tuple[BAProblem, BAStats]:
+        summands, local, counts = [], [], []
+        for poses, landmarks, observations, obs_mask in zip(*problem):
+            h_pp, b_p, h_ll, b_l, w_pl, stats = _assemble(
+                camera_matrix, poses, landmarks, observations, obs_mask, kernel_threshold)
+            h_ll_inv, s_red, b_red = _schur_contributions(h_ll, b_l, w_pl, damping)
+            summands.append((h_pp, b_p, s_red, b_red, stats.chi))
+            local.append((h_ll_inv, b_l, w_pl))
+            counts.append(stats.num_obs)
+        # Every sequence's pose-space terms and chi in one sum over lm, the counts in another.
+        shapes = [x.shape for x in summands[0]]
+        summed = mesh_mod.psum(
+            mesh, torch.stack([torch.cat([x.reshape(-1) for x in t]) for t in summands]), lm_axis)
+        num_obs = mesh_mod.psum(mesh, torch.stack(counts), lm_axis)
+        new_poses, new_landmarks, chis = [], [], []
+        for i, (row, (h_ll_inv, b_l, w_pl)) in enumerate(zip(summed, local)):
+            h_pp, b_p, s_red, b_red, chi = (
+                x.reshape(shape) for x, shape in zip(row.split([s.numel() for s in shapes]),
+                                                     shapes))
+            dx_p = _solve_pose_system(h_pp, b_p, s_red, b_red, damping)
+            wt_dx = torch.einsum("flij,fi->lj", w_pl, dx_p)
+            dx_l = -torch.einsum("lij,lj->li", h_ll_inv, b_l + wt_dx)
+            new_poses.append(se3.v2t_euler(dx_p) @ problem.poses[i])
+            new_landmarks.append(problem.landmarks[i] + dx_l)
+            chis.append(chi)
+        return (problem._replace(poses=torch.stack(new_poses),
+                                 landmarks=torch.stack(new_landmarks)),
+                BAStats(chi=torch.stack(chis), num_obs=num_obs))
+
+    return step
 
 
 def refine(

@@ -21,11 +21,14 @@ independent sequences. Two forms:
 ``auto`` picks ``cuda`` for CUDA tensors and ``torch`` for CPU tensors. Per
 sequence both forms give what ``pipeline.run_sequence`` gives.
 
+With a ``mesh`` (``parallel/mesh``) the batch is split over its ``dp_axis``:
+every rank runs the form above on its B/n sequences and all-gathers the
+results in sequence order, so every rank returns the whole batch. Tracking
+moves nothing between ranks.
+
 Not carried over from the TPU design: ``inner_batch``, ``_serving_inner`` and
 the sublane grouping (on this card a sequence is a CTA, and the CTAs run side
-by side on the SMs), and ``interpret``. ``mesh``/``dp_axis`` stay in the
-signature; sharding the batch over several cards is not ported and a mesh
-raises ``NotImplementedError``.
+by side on the SMs), and ``interpret``.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from ..ops.camera import Camera
 from ..ops.kernels import _lib, frame_kernel, gather_kernel
 from ..utils.config import VOConfig
 from ..utils.profiling import stage
+from . import mesh as mesh_mod
 
 
 def _stack(items):
@@ -155,10 +159,13 @@ def _run_serving(camera: Camera, config: VOConfig, points, appearances, masks
     # run along the frame axis, each sequence on its own), then one map fold
     # per sequence (pipeline._run's tail). A matmul batched over the sequences
     # may round differently from run_sequence's over one: map positions agree
-    # to the last bits, not bit for bit.
+    # to the last bits, not bit for bit. The inverses are taken a sequence at
+    # a time: the card's batched matrix-vector product rounds by a kernel
+    # chosen for the batch's size, and a sequence's map must not depend on
+    # the batch it was served in (dp serving's blocks equal one batch).
     with stage("chains_and_transform"):
-        inv_poses = se3.inverse(outs.pose)
-        heads = torch.cat([se3.inverse(x_init)[:, None], inv_poses[:, :-1]], dim=1)
+        forward = torch.cat([x_init[:, None], outs.pose[:, :-1]], dim=1)
+        heads = torch.stack([se3.inverse(p) for p in forward])
         chains = se3.chain_products(heads.transpose(0, 1)).transpose(0, 1)
         tri_world = se3.transform_points(chains, outs.tri_points)
     with stage("map_fold"):
@@ -190,18 +197,28 @@ def run_sequences_batched(
     ``torch`` a loop of the single-sequence program, ``auto`` = ``cuda`` for
     CUDA tensors. ``validate`` runs the world-join exactness guard on the
     result (``pipeline.check_join_overflow``, a host fetch). One camera and
-    one config serve the whole batch. A ``mesh`` raises
-    ``NotImplementedError``: multi-device serving is ROADMAP.md item 12.
+    one config serve the whole batch. With ``mesh`` every rank passes the
+    whole batch, the ``dp_axis`` size must divide B, each rank tracks its
+    block of B/n sequences on ``mesh.device`` and every rank returns the
+    whole batch's result, gathered there.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            f"run_sequences_batched over a mesh (axis {dp_axis!r}: the batch sharded over "
-            "several cards) is not ported yet: ROADMAP.md queue 1 item 12")
     if points.shape[2] != config.n_slots:
         raise ValueError(f"frames have {points.shape[2]} slots, config.n_slots={config.n_slots}")
     if points.shape[1] < 3:
         raise ValueError("a sequence needs at least 3 frames (bootstrap pair + one tracked)")
-    if _lib.use_kernel(backend, points):
+    if mesh is not None:
+        n = mesh.shape[dp_axis]
+        b = points.shape[0]
+        if b % n:
+            raise ValueError(f"the mesh axis {dp_axis!r} of size {n} does not divide {b} "
+                             "sequences")
+        i, rows = mesh.axis_index(dp_axis), b // n
+        block = (x[i * rows:(i + 1) * rows].to(mesh.device)
+                 for x in (points, appearances, masks))
+        out = run_sequences_batched(camera, config, *block, validate=False, backend=backend)
+        out = (mesh_mod.all_gather(mesh, out[0], dp_axis),
+               *(mesh_mod.all_gather_tuple(mesh, t, dp_axis) for t in out[1:]))
+    elif _lib.use_kernel(backend, points):
         if config.scan_backend == "step":
             raise ValueError("the batched program has no frame_step form: scan_backend='step' "
                              "needs backend='torch'")

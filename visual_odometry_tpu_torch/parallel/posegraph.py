@@ -30,9 +30,13 @@ is, as the JAX module's do; they route the pair matcher by the config's
 ``matcher_backend``. When the config's radius is 0.1 too, their pass also
 gives chunk 0's bootstrap check, which then launches no matcher of its own;
 otherwise the check matches its pair at the config's radius. The chain
-products are ``se3.chain_products`` (JAX: ``associative_scan``). ``mesh`` and
-``sp_axis`` stay in the signature; sharding the chunks over several cards is
-not ported and a mesh raises ``NotImplementedError``.
+products are ``se3.chain_products`` (JAX: ``associative_scan``).
+
+Sequence parallelism over a ``mesh`` (``parallel/mesh``): every rank makes
+the same plan (the bootstrap scores included), tracks its block of C/n
+chunks as above, and all-gathers the chunks' bootstrap poses, per-frame
+outputs and bootstrap triangulations in chunk order; every rank then stitches
+and folds the same map. Tracking moves nothing between ranks.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from ..ops import epipolar, matching, se3
 from ..ops.camera import Camera
 from ..utils.config import VOConfig
 from ..utils.profiling import stage
+from . import mesh as mesh_mod
 from . import multiseq
 
 _EPS = 1e-8
@@ -205,23 +210,33 @@ def _track_and_stitch(
     num_frames: int,
     use_known_da: bool,
     batched: bool,
+    mesh=None,
+    sp_axis: str = "dp",
 ) -> Tuple[torch.Tensor, LandmarkMap, PoseGraphDiagnostics]:
     """Track the C >= 2 chunks (``batched``: one ``multiseq._track_batched``
-    program, else a loop of ``pipeline._track``), stitch their scales and
-    fold one map."""
+    program, else a loop of ``pipeline._track``; with ``mesh``, this rank's
+    block of them, then gathered), stitch their scales and fold one map."""
     c, length = len(starts), chunk_len
     d = capps.shape[-1]
 
     # --- 1. track every chunk independently ---
+    chunks = (cpoints, capps, cmasks, cids)
+    if mesh is not None:
+        i, rows = mesh.axis_index(sp_axis), c // mesh.shape[sp_axis]
+        chunks = tuple(x[i * rows:(i + 1) * rows] for x in chunks)
     if batched:
-        x_init_c, outs_c, init_tri = multiseq._track_batched(
-            camera, config, cpoints, capps, cmasks, cids, use_known_da)
+        x_init_c, outs_c, init_tri = multiseq._track_batched(camera, config, *chunks,
+                                                             use_known_da)
     else:
-        runs = [pipeline._track(camera, config, cpoints[i], capps[i], cmasks[i], cids[i],
-                                use_known_da) for i in range(c)]
+        runs = [pipeline._track(camera, config, *(x[i] for x in chunks), use_known_da)
+                for i in range(chunks[0].shape[0])]
         x_init_c = torch.stack([r[0] for r in runs])
         outs_c = multiseq._stack([r[1] for r in runs])
         init_tri = multiseq._stack([r[2] for r in runs])
+    if mesh is not None:
+        x_init_c = mesh_mod.all_gather(mesh, x_init_c, sp_axis)
+        outs_c = mesh_mod.all_gather_tuple(mesh, outs_c, sp_axis)
+        init_tri = mesh_mod.all_gather_tuple(mesh, init_tri, sp_axis)
 
     with stage("stitch"):
         # Per-chunk LOCAL relative-pose trajectories, entries 0..L-1: entry 0
@@ -339,16 +354,20 @@ def refine_stitched(
     boundary seams and the per-boundary scale noise relax away. Honors
     ``config.refine_backend`` as ``apps.run_vo_complete`` does ("dense":
     ``refinement.refine_trajectory``, "sparse": ``refine_trajectory_sparse``)
-    and runs on the tensors' device. A ``mesh`` raises (ROADMAP.md item 12).
-    Returns (relative trajectory (F, 4, 4), map of ``config.map_capacity``)."""
+    and runs on the tensors' device. With a ``mesh`` that has an ``lm`` axis
+    the refinement runs sharded over it; a mesh without one (the ('dp',)
+    sequence-parallel mesh) refines on each rank's device alone, as the JAX
+    package does. Returns (relative trajectory (F, 4, 4), map of
+    ``config.map_capacity``)."""
     refine_fn = (refinement.refine_trajectory_sparse if config.refine_backend == "sparse"
                  else refinement.refine_trajectory)
     dev = points.device
+    ba_mesh = mesh if mesh is not None and "lm" in mesh.axis_names else None
     rel, map_pts, map_apps, _ = refine_fn(
         camera.camera_matrix.cpu().numpy(), trajectory.cpu().numpy(), map_state,
         points.cpu().numpy(), appearances.cpu().numpy(), masks.cpu().numpy(),
         num_iterations=num_iterations, damping=config.refine_damping,
-        kernel_threshold=config.kernel_threshold, mesh=mesh, device=dev)
+        kernel_threshold=config.kernel_threshold, mesh=ba_mesh, device=dev)
     n = len(map_pts)
     refined = LandmarkMap.empty(config.map_capacity, map_apps.shape[-1], points.dtype, dev)
     refined.points[:n] = torch.from_numpy(np.asarray(map_pts)).to(dev, points.dtype)
@@ -427,14 +446,19 @@ def run_sequence_chunked(
     ``scan_backend="step"`` as a loop of the single-sequence tracker. Raises ``pipeline.BootstrapError``
     when chunk 0's bootstrap pair has < 8 matches,
     ``pipeline.FusedJoinDepthError`` on a world-join overflow and
-    :class:`StitchError` on a boundary with no scale observation. A ``mesh``
-    (the chunks sharded over ``sp_axis`` of several cards) raises
-    ``NotImplementedError``: ROADMAP.md item 12.
+    :class:`StitchError` on a boundary with no scale observation. With
+    ``mesh`` every rank passes the whole sequence, the ``sp_axis`` size must
+    divide ``num_chunks``, each rank tracks its block of the chunks on
+    ``mesh.device`` and every rank returns the whole result; a single chunk
+    runs the serial pipeline on every rank, as in the JAX package.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            f"run_sequence_chunked over a mesh (axis {sp_axis!r}: the chunks sharded over "
-            "several cards) is not ported yet: ROADMAP.md queue 1 item 12")
+        n = mesh.shape[sp_axis]
+        if num_chunks > 1 and num_chunks % n:
+            raise ValueError(f"the mesh axis {sp_axis!r} of size {n} does not divide "
+                             f"{num_chunks} chunks")
+        points, appearances, masks = (x.to(mesh.device) for x in (points, appearances, masks))
+        ids = None if ids is None else ids.to(mesh.device)
     f = points.shape[0]
     use_known_da = ids is not None
     if ids is None:
@@ -465,7 +489,7 @@ def run_sequence_chunked(
         chunked = [_chunk(x, starts, chunk_len) for x in (points, appearances, masks, ids)]
         batched = points.is_cuda and config.scan_backend != "step"
         trajectory, final_map, diags = _track_and_stitch(
-            camera, config, *chunked, starts, chunk_len, f, use_known_da, batched)
+            camera, config, *chunked, starts, chunk_len, f, use_known_da, batched, mesh, sp_axis)
         with stage("overflow_check"):
             overflow, ratio_obs = int(diags.join_overflow), diags.num_ratio_obs.cpu().numpy()
         if overflow:

@@ -53,9 +53,17 @@ layout is assumed to be the faster one.
 
 The CG loop's exit test reads the residual on the host once an iteration. A
 step's three parts (system build, pose CG, back-substitution) sit in
-``utils.profiling.stage`` blocks, as the pipeline's steps do. Not
-ported here: ``psum_axis``, ``partition_observations*`` and
-``make_sharded_sparse_ba_step`` (the landmark-sharded multi-device step).
+``utils.profiling.stage`` blocks, as the pipeline's steps do.
+
+Landmark sharding (``make_sharded_sparse_ba_step``): the landmarks are split
+into equal blocks over the ``lm`` axis of a mesh and every observation moves
+to its landmark's rank (``partition_observations[_packed]``, on the host).
+Each rank runs the step on its block with ``psum_axis``: the pose-space sums
+(H_pp, b_p, the preconditioner's diagonal correction, chi and the count, the
+reduced right-hand side and every CG matvec's coupling term) are summed over
+the axis, so the CG runs replicated on (F, 6) vectors, and its exit test is
+taken through a ``pmin`` of each rank's verdict. Landmark updates stay on
+their rank.
 """
 
 from __future__ import annotations
@@ -68,6 +76,7 @@ import torch
 from ..ops import se3
 from ..ops.kernels import gather_kernel, segsum_kernel
 from ..utils.profiling import stage
+from . import mesh as mesh_mod
 
 
 class SparseBAProblem(NamedTuple):
@@ -303,12 +312,22 @@ class _ReducedSystem(NamedTuple):
     frame_plan: segsum_kernel.SegmentPlan   # K9's plan of frame_seg
 
 
+def _psum(x: torch.Tensor, psum_axis) -> torch.Tensor:
+    """``x`` summed over ``psum_axis`` = (mesh, axis name), or ``x`` when None."""
+    if psum_axis is None:
+        return x
+    mesh, axis = psum_axis
+    return mesh_mod.psum(mesh, x, axis)
+
+
 def _build_reduced(camera_matrix, problem: SparseBAProblem, damping, kernel_threshold,
-                   lm_degree=None, frames=None):
+                   lm_degree=None, frames=None, psum_axis=None):
     """Assemble the reduced system from the observation list. On the card:
     one K10 launch (the pose rows) and three K9 launches (H_pp, b_p, the
     preconditioner's diagonal correction). ``frames`` is
-    :func:`plan_frames` of the problem, made here when None."""
+    :func:`plan_frames` of the problem, made here when None. With
+    ``psum_axis`` the observations and landmarks are one rank's block and the
+    pose-space sums, chi and the count are summed over the axis."""
     f = problem.poses.shape[0]
     fi, plan = plan_frames(problem) if frames is None else frames
     l = problem.landmarks.shape[0]
@@ -347,6 +366,13 @@ def _build_reduced(camera_matrix, problem: SparseBAProblem, damping, kernel_thre
 
     chi_sum = (chi * w).sum()
     nobs = (w > 0).sum().to(torch.int32)
+    if psum_axis is not None:
+        sizes = (f * 36, f * 6, f * 36, 1)
+        summed = _psum(torch.cat([h_pp.reshape(-1), b_p.reshape(-1), diag_corr.reshape(-1),
+                                  chi_sum.reshape(1)]), psum_axis).split(sizes)
+        h_pp, b_p = summed[0].reshape(f, 6, 6), summed[1].reshape(f, 6)
+        diag_corr, chi_sum = summed[2].reshape(f, 6, 6), summed[3][0]
+        nobs = _psum(nobs, psum_axis)
 
     h_pp_d = h_pp + damping * eye6
     s_diag = h_pp_d - diag_corr
@@ -386,13 +412,16 @@ def _coupling_transpose(system: _ReducedSystem, mask_f: torch.Tensor, v: torch.T
 
 
 def _coupling_apply(system: _ReducedSystem, mask_f: torch.Tensor, v: torch.Tensor, num_lm: int,
-                    lm_degree=None) -> torch.Tensor:
+                    psum_axis=None, lm_degree=None) -> torch.Tensor:
     """(W Hll^-1 W^T) v for v (F, 6), matrix-free in O(N). On the card: one
-    K10 launch (v at the observations) and one K9 launch (the sum back)."""
+    K10 launch (v at the observations) and one K9 launch (the sum back).
+    With ``psum_axis`` each rank holds a disjoint set of landmarks and their
+    observations, so the ranks' products sum to the global one."""
     s_l = _coupling_transpose(system, mask_f, v, num_lm, lm_degree)        # (L, 3)
     m_l = (system.h_ll_inv * s_l[:, None, :]).sum(-1)                      # (L, 3)
     y = _coupling_rows(system, mask_f, m_l, lm_degree)                     # (N, 6)
-    return _segsum_frame_rows(y, system.frame_seg, system.h_pp_d.shape[0], system.frame_plan)
+    return _psum(_segsum_frame_rows(y, system.frame_seg, system.h_pp_d.shape[0],
+                                    system.frame_plan), psum_axis)
 
 
 def _gauge(v: torch.Tensor) -> torch.Tensor:
@@ -401,23 +430,26 @@ def _gauge(v: torch.Tensor) -> torch.Tensor:
 
 
 def _solve_pose_cg(system: _ReducedSystem, mask_f: torch.Tensor, num_lm: int, cg_iterations: int,
-                   cg_tolerance: float, lm_degree=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                   cg_tolerance: float, psum_axis=None,
+                   lm_degree=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Preconditioned CG on S dx = -b_reduced over (F, 6) vectors. On the
     card: one K9 launch for the reduced right-hand side, then one K10 and one
-    K9 launch an iteration."""
+    K9 launch an iteration. With ``psum_axis`` the vectors are replicated and
+    the loop runs while every rank's test says go on (a ``pmin``)."""
 
     def s_apply(v):
         v = _gauge(v)
         hv = (system.h_pp_d * v[:, None, :]).sum(-1)
-        return _gauge(hv - _coupling_apply(system, mask_f, v, num_lm, lm_degree))
+        return _gauge(hv - _coupling_apply(system, mask_f, v, num_lm, psum_axis, lm_degree))
 
     def m_apply(v):
         return _gauge((system.precond * v[:, None, :]).sum(-1))
 
     # rhs = -(b_p - W Hll^-1 b_l): b_l folded through the coupling path once.
     m_l = (system.h_ll_inv * system.b_l[:, None, :]).sum(-1)
-    b_red = _segsum_frame_rows(_coupling_rows(system, mask_f, m_l, lm_degree),
-                               system.frame_seg, system.b_p.shape[0], system.frame_plan)
+    b_red = _psum(_segsum_frame_rows(_coupling_rows(system, mask_f, m_l, lm_degree),
+                                     system.frame_seg, system.b_p.shape[0], system.frame_plan),
+                  psum_axis)
     rhs = _gauge(-(system.b_p - b_red))
 
     rhs_norm = torch.clamp_min((rhs * rhs).sum(), 1e-30)
@@ -428,10 +460,17 @@ def _solve_pose_cg(system: _ReducedSystem, mask_f: torch.Tensor, num_lm: int, cg
     rz = (r * z).sum()
     tol2 = torch.as_tensor(cg_tolerance, dtype=rhs.dtype) ** 2
     it = 0
-    # rz <= 0 or non-finite: the float32 system lost positive-definiteness
-    # (degenerate geometry) — stop with the best iterate instead of diverging.
-    while it < cg_iterations and bool(
-            ((r * r).sum() > tol2 * rhs_norm) & (rz > 0.0) & torch.isfinite(rz)):
+
+    def go_on(r, rz):
+        # rz <= 0 or non-finite: the float32 system lost positive-definiteness
+        # (degenerate geometry) — stop with the best iterate instead of diverging.
+        ok = ((r * r).sum() > tol2 * rhs_norm) & (rz > 0.0) & torch.isfinite(rz)
+        if psum_axis is not None:
+            mesh, axis = psum_axis
+            ok = mesh_mod.pmin(mesh, ok.to(torch.int32), axis) > 0
+        return bool(ok)
+
+    while it < cg_iterations and go_on(r, rz):
         sp = s_apply(p)
         denom = (p * sp).sum()
         alpha = torch.where(denom > 0.0, rz / torch.where(denom == 0.0, 1.0, denom), 0.0)
@@ -453,6 +492,7 @@ def sparse_ba_step(
     kernel_threshold: float = 10000.0,
     cg_iterations: int = 64,
     cg_tolerance: float = 1e-6,
+    psum_axis=None,
     lm_degree: Optional[int] = None,
     frames: Optional[Tuple[torch.Tensor, segsum_kernel.SegmentPlan]] = None,
 ) -> Tuple[SparseBAProblem, SparseBAStats]:
@@ -460,13 +500,19 @@ def sparse_ba_step(
     densification. ``lm_degree`` is :func:`pack_problem`'s degree for a packed
     problem; ``frames`` is :func:`plan_frames` of the problem (made here when
     None). With ``i`` CG iterations run, a step on the card launches K10
-    ``2 + i`` times and K9 ``4 + i`` times."""
+    ``2 + i`` times and K9 ``4 + i`` times.
+
+    ``psum_axis`` = (mesh, axis name) makes this the rank-local body of
+    :func:`make_sharded_sparse_ba_step`: the problem's landmarks and
+    observations are this rank's block, the pose-space sums are summed over
+    the axis."""
     l = problem.landmarks.shape[0]
     with stage("ba_build_reduced"):
         system, mask_f, chi_sum, nobs = _build_reduced(
-            camera_matrix, problem, damping, kernel_threshold, lm_degree, frames)
+            camera_matrix, problem, damping, kernel_threshold, lm_degree, frames, psum_axis)
     with stage("ba_pose_cg"):
-        dx_p, cg_rel = _solve_pose_cg(system, mask_f, l, cg_iterations, cg_tolerance, lm_degree)
+        dx_p, cg_rel = _solve_pose_cg(system, mask_f, l, cg_iterations, cg_tolerance, psum_axis,
+                                      lm_degree)
     with stage("ba_back_substitute"):
         # Back-substitute landmarks: dx_l = -Hll^-1 (b_l + W^T dx_p), O(N).
         wt_dx = _coupling_transpose(system, mask_f, dx_p, l, lm_degree)
@@ -506,3 +552,111 @@ def refine_sparse(
             cg_iterations=int(cg_iterations), cg_tolerance=cg_tolerance, lm_degree=degree,
             frames=frames)
     return problem._replace(poses=work.poses, landmarks=work.landmarks), stats
+
+
+# --------------------------------------------------------------------------
+# Distribution over the lm axis of a mesh
+# --------------------------------------------------------------------------
+
+
+def partition_observations(
+    n_shards: int,
+    num_landmarks: int,
+    frame_idx: np.ndarray,
+    lm_idx: np.ndarray,
+    uv: np.ndarray,
+    obs_mask: np.ndarray,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]:
+    """Host-side shard layout: landmarks block-partition over ``n_shards``;
+    each observation moves to its landmark's shard with the landmark index
+    rebased to shard-local coordinates. Shards pad to a common count.
+
+    Returns (frame_idx, local_lm_idx, uv, mask) in shard-major order (reshape
+    to (n_shards, cap, ...); shard s is rank s of the ``lm`` axis), plus the
+    per-shard landmark count."""
+    live = obs_mask.astype(bool)
+    l_per = -(-num_landmarks // n_shards)
+    shard_of = lm_idx // l_per
+    counts = [int(np.sum(live & (shard_of == s))) for s in range(n_shards)]
+    cap = max(max(counts), 1)
+    fi = np.zeros((n_shards, cap), np.int32)
+    li = np.zeros((n_shards, cap), np.int32)
+    uvs = np.zeros((n_shards, cap, 2), np.float32)
+    msk = np.zeros((n_shards, cap), bool)
+    for s in range(n_shards):
+        sel = live & (shard_of == s)
+        n = int(np.sum(sel))
+        fi[s, :n] = frame_idx[sel]
+        li[s, :n] = lm_idx[sel] - s * l_per
+        uvs[s, :n] = uv[sel]
+        msk[s, :n] = True
+    return fi.reshape(-1), li.reshape(-1), uvs.reshape(-1, 2), msk.reshape(-1), l_per
+
+
+def partition_observations_packed(
+    n_shards: int,
+    num_landmarks: int,
+    frame_idx: np.ndarray,
+    lm_idx: np.ndarray,
+    uv: np.ndarray,
+    obs_mask: np.ndarray,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, int, int]:
+    """Shard layout and fixed-degree landmark-major packing in one host pass,
+    the sharded twin of :func:`pack_problem`: landmarks block-partition over
+    ``n_shards`` (l_per a shard) and each shard's observations land in slots
+    ``local_lm * degree + rank`` with one global degree (the largest
+    per-landmark observation count). Returns (frame_idx, local_lm_idx, uv,
+    mask) in shard-major order plus (l_per, degree); ``degree`` is
+    :func:`make_sharded_sparse_ba_step`'s ``lm_degree``."""
+    live = obs_mask.astype(bool)
+    l_per = -(-num_landmarks // n_shards)
+    counts = np.bincount(lm_idx[live], minlength=num_landmarks)
+    degree = max(int(counts.max()) if counts.size else 1, 1)
+    cap = l_per * degree
+    fi = np.zeros((n_shards, cap), np.int32)
+    li = np.tile(np.repeat(np.arange(l_per, dtype=np.int32), degree)[None], (n_shards, 1))
+    uvs = np.zeros((n_shards, cap, 2), np.float32)
+    msk = np.zeros((n_shards, cap), bool)
+    order = np.argsort(lm_idx[live], kind="stable")
+    lm_sorted = lm_idx[live][order]
+    rank = np.arange(len(lm_sorted)) - np.searchsorted(lm_sorted, lm_sorted, side="left")
+    shard = lm_sorted // l_per
+    slot = (lm_sorted - shard * l_per) * degree + rank
+    fi[shard, slot] = frame_idx[live][order]
+    uvs[shard, slot] = uv[live][order]
+    msk[shard, slot] = True
+    return fi.reshape(-1), li.reshape(-1), uvs.reshape(-1, 2), msk.reshape(-1), l_per, degree
+
+
+def make_sharded_sparse_ba_step(
+    mesh: mesh_mod.Mesh,
+    damping: float = 1.0,
+    kernel_threshold: float = 10000.0,
+    cg_iterations: int = 64,
+    cg_tolerance: float = 1e-6,
+    lm_axis: str = "lm",
+    lm_degree=None,
+):
+    """The landmark-sharded sparse BA step over ``mesh``'s ``lm_axis``:
+    ``step(camera_matrix, problem, frames=None) -> (problem, stats)``, called
+    by every rank.
+
+    ``problem`` holds the whole poses and this rank's blocks: landmarks
+    (l_per, 3) and the observation arrays of its shard of
+    :func:`partition_observations` (shard-local landmark indices) or, with
+    ``lm_degree``, of :func:`partition_observations_packed`. The returned
+    poses and stats are whole and alike on every rank; the landmarks stay
+    this rank's block. ``frames`` is :func:`plan_frames` of the rank's block,
+    made once a run by the caller (made each step when None).
+
+    Collectives a step: the (F, 6, 6) + (F, 6) + (F, 6, 6) sums and the count
+    at assembly, the reduced right-hand side, and per CG iteration one (F, 6)
+    sum and the exit test's ``pmin``."""
+
+    def step(camera_matrix, problem: SparseBAProblem, frames=None):
+        return sparse_ba_step(
+            camera_matrix, problem, damping=damping, kernel_threshold=kernel_threshold,
+            cg_iterations=cg_iterations, cg_tolerance=cg_tolerance, psum_axis=(mesh, lm_axis),
+            lm_degree=lm_degree, frames=frames)
+
+    return step
