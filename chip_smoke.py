@@ -117,6 +117,20 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      counts); {"path_i": ...} gives each check's wall time a rank, the
      transport and the bytes staged. Four processes on one card: no scaling
      figure.
+  14. path J: parallel/scaling and the graft entry (graft_entry.py).
+     graft_entry.dryrun_multichip(4) with path J's workloads: one world of
+     gloo ranks sharing the card per n in (1, 2, 4) (the world of 4 runs the
+     JAX dry run's five sharded checks first), each running dp at path E's
+     shapes, sp at production length (F = 1,024, S = 128, overlap 10;
+     F = 2,048 at n = 1 and 4) and sparse BA over lm at path F(2)'s shapes
+     (one packed step, 64 CG), with the dry run's thresholds on each row's
+     partition efficiency (the per-rank work tally of parallel/scaling) at
+     n = 4; dp at n > 1 bit for bit with n = 1, sp with the unsharded chunked
+     call of its plan; the tally of small calls on the card equal to the
+     CPU's; graft_entry.entry()'s step on the card against the CPU's on the
+     same state (GN_POSE_TOL, equal inliers) and graft_entry.selfcheck().
+     {"path_j": ...} holds the rows (wall times of ranks sharing one card:
+     no scaling figure), each world's seconds and staged bytes.
 ``python3 chip_smoke.py --stages`` instead runs the entry points of paths B, C,
 D, E and H and one sparse-BA step of path F(2) in each layout inside
 ``profiling.stage_times`` and prints the time of each step the
@@ -186,6 +200,14 @@ CHUNK_RATIO_TOL = 0.05   # each frame's translation ratio to serial path B, abou
 BA_POSES, BA_LANDMARKS, BA_STEPS, BA_CG = 512, 100_000, 3, 64
 MESH_SHARDS = 4            # path I: ranks sharing the card over gloo
 PATH_I_ONE_SEQUENCES = 8   # path I: path E's sequences the world of one serves
+PATH_J_RANKS = (1, 2, 4)   # path J: one world of gloo ranks sharing the card per n
+PATH_J_HEAD = 8            # path J: frames of each recorded K4/K8 launch held to the plain version
+PATH_J_DP_HEAD = 2         # the same for a dp rank's block (100 GN rounds a frame, ~38 run)
+ENTRY_TRI_TOL = 5e-4       # the entry's triangulations, card against CPU (the parity bound)
+# Path J's kernels: dp and sp (K1-K3, K8; K4 in the serial n = 1 sp run), sparse
+# BA over lm (K9, K10), the dry run's sharded matcher (K7), the entry's step (K1, K6).
+PATH_J = ("match_pairs", "join_candidates", "gather_rows", "track_frames", "best_match",
+          "track_frames_batched", "segment_sum", "take_table", "picp_solve")
 MOUNT_V = (0.05, -0.1, 0.02, 0.01, -0.02, 0.015)   # a non-identity camera mount, Euler chart
 
 
@@ -2399,6 +2421,302 @@ def run_path_i(camera, config, serving, path_b, ba_problem, work_dir: str, devic
     return launches
 
 
+def path_j_workloads():
+    """Path J's scaling workloads: dp at path E's shapes (64 x 128 frames x
+    128 slots, landmark fields 100-163, the config's 100 GN rounds); sp at
+    production length (F = 1,024, S = 128, overlap 10, 10 GN rounds, slack 0)
+    and F = 2,048 at n = 1 and 4; lm at path F(2)'s shapes (512 poses x
+    100,000 landmarks, generate_ba_corridor's seed 3 as the JAX measure's),
+    one packed LM step of 64 CG iterations."""
+    from visual_odometry_tpu_torch.parallel import scaling
+
+    return [
+        scaling.workload(scaling.DP, seqs_total=SERVE_B, frames=SERVE_FRAMES,
+                         n_slots=SERVE_SLOTS, gn_iterations=100, reps=1, first_seed=100,
+                         workload="path_e"),
+        scaling.workload(scaling.SP, frames=1024, n_slots=128, overlap=CHUNK_OVERLAP,
+                         gn_iterations=10, reps=1, workload="production_length"),
+        scaling.workload(scaling.SP, frames=2048, n_slots=128, overlap=CHUNK_OVERLAP,
+                         gn_iterations=10, reps=1, workload="long_sequence",
+                         ns=(1, max(PATH_J_RANKS))),
+        scaling.workload(scaling.LM, frames=BA_POSES, num_landmarks=BA_LANDMARKS,
+                         cg_iterations=BA_CG, reps=1, packed=True, workload="sparse_ba"),
+    ]
+
+
+@contextlib.contextmanager
+def recording_all(targets):
+    """:func:`recording` of every (module, name) of ``targets`` at once; yields
+    {name: its recorded calls}."""
+    with contextlib.ExitStack() as stack:
+        yield {name: stack.enter_context(recording(module, name)) for module, name in targets}
+
+
+def frame_loop_targets():
+    """The wrappers that launch K1-K4 and K8, for :func:`recording_all`."""
+    from visual_odometry_tpu_torch.ops.kernels import frame_kernel, gather_kernel, matcher_kernel
+
+    return ((matcher_kernel, "match_pairs_cuda"), (frame_kernel, "join_candidates_cuda"),
+            (gather_kernel, "gather_rows_cuda"), (frame_kernel, "track_frames_cuda"),
+            (frame_kernel, "track_frames_batched_cuda"))
+
+
+def head_frames_batched(args, frames: int):
+    """K8's arguments cut to the first ``frames`` tracked frames of every sequence."""
+    from visual_odometry_tpu_torch.ops.kernels.frame_kernel import JoinCandidates
+
+    params, pose0, tri, tri_ok, cand, prev_al, cur_al, valid = args[:8]
+    cut = lambda x: x[:, :frames].contiguous()   # noqa: E731
+    return ((params, pose0, tri, tri_ok, JoinCandidates(*map(cut, cand)), cut(prev_al),
+             cut(cur_al), cut(valid)) + tuple(args[8:]))
+
+
+def hold_calls_to_plain(calls: dict, label: str, head: int = PATH_J_HEAD) -> dict:
+    """Each recorded launch (``recording_all``) run again through its kernel's
+    plain version on the same card tensors: K1's indices equal and distances
+    within K1_DIST_RTOL, K2, K3, K9 and K10 bit for bit, K4 and K8 over the
+    first ``head`` frames of every sequence (the frame loop is causal) with
+    poses within K4_POSE_TOL and the same triangulation validity. Returns
+    {wrapper: {"calls", "shapes" (each once), "max_abs_err_vs_plain"}}."""
+    import torch
+
+    from visual_odometry_tpu_torch.ops.kernels import (
+        frame_kernel, gather_kernel, matcher_kernel, segsum_kernel,
+    )
+
+    exact = {"join_candidates_cuda": frame_kernel.join_candidates_plain,
+             "gather_rows_cuda": gather_kernel.gather_rows_plain,
+             "segment_sum_small_cuda": segsum_kernel.segment_sum_small_plain,
+             "take_table_cuda": gather_kernel.take_table_plain}
+    report = {}
+    for name, recorded in calls.items():
+        err, shapes = 0.0, []
+        for c, (args, kwargs, out) in enumerate(recorded):
+            where = f"{label}: {name} call {c}"
+            shape = list(args[4].idx.shape if name == "track_frames_batched_cuda"
+                         else args[3].idx.shape if name == "track_frames_cuda"
+                         else args[0].shape)
+            if shape not in shapes:
+                shapes.append(shape)
+            if name == "match_pairs_cuda":
+                ref = matcher_kernel.match_pairs_plain(*args, **kwargs)
+                require(torch.equal(out[1], ref[1]) and torch.equal(out[3], ref[3]),
+                        f"{where}: K1's indices differ from the plain version")
+                for kd, pd in ((out[0], ref[0]), (out[2], ref[2])):
+                    diff = (kd - pd).abs()
+                    require(bool((diff <= K1_DIST_RTOL * pd.abs().clamp_min(1.0)).all()),
+                            f"{where}: K1's distances differ beyond {K1_DIST_RTOL} relative")
+                    live = pd < 1e38
+                    if bool(live.any()):
+                        err = max(err, float(diff[live].max()))
+            elif name in exact:
+                ref = exact[name](*args, **kwargs)
+                pairs = zip(out, ref) if isinstance(out, tuple) else ((out, ref),)
+                require(all(torch.equal(a, b) for a, b in pairs),
+                        f"{where}: differs from the plain version")
+            else:
+                batched = name == "track_frames_batched_cuda"
+                plain = (frame_kernel.track_frames_batched_plain if batched
+                         else frame_kernel.track_frames_plain)
+                short = (head_frames_batched if batched else head_frames)(args, head)
+                ref = plain(*short)
+                got = [x[:, :head] if batched else x[:head] for x in out]
+                e = float((got[0] - ref[0]).abs().max())
+                require(e <= K4_POSE_TOL,
+                        f"{where}: poses {e} from the plain version's (> {K4_POSE_TOL})")
+                require(torch.equal(got[2], ref[2]),
+                        f"{where}: triangulation validity differs from the plain version")
+                err = max(err, e)
+        report[name] = {"calls": len(recorded), "shapes": shapes, "max_abs_err_vs_plain": err}
+    return report
+
+
+def run_path_j(device, smi: str):
+    """parallel/scaling and the graft entry on the card.
+    ``graft_entry.dryrun_multichip(4)`` with path J's workloads: one world of
+    gloo ranks sharing the card per n in PATH_J_RANKS, each running dp, sp
+    and lm (path_j_workloads), the world of 4 the dry run's five sharded
+    checks first; the rows held to the dry run's thresholds at n = 4. dp's
+    trajectories at n > 1 equal n = 1's bit for bit and sp's equal the
+    unsharded chunked call of the same plan on this card (as path I holds
+    them); every rank returns the same result. The kernels the ranks ran, at
+    their shapes, against their plain versions: sp's unsharded calls (K1-K3,
+    K4 at n = 1, K8 over the chunks at n > 1), a dp rank's block at n = 4
+    (K1-K3, K8 over 16 sequences) and an lm rank's shard at n = 2 and 4
+    (every K9 and K10 call of one step on it), each replayed here with its
+    launches recorded (hold_calls_to_plain). The work tally of small calls
+    on the card equals the CPU's. ``graft_entry.entry()``'s step on the card
+    against the plain versions' on the same state moved to the CPU (pose
+    within GN_POSE_TOL, triangulations within ENTRY_TRI_TOL, the same inlier
+    count), and the same step on ``graft_entry.tracking_state``, which tracks
+    every slot (the entry's own state tracks none), each with its K1 and K6
+    launches held to their plain versions; then ``graft_entry.selfcheck()``.
+    Launches: the ranks' (dry run and scaling worlds) and the entry step's;
+    the replays and comparisons count none."""
+    import torch
+
+    from visual_odometry_tpu_torch import graft_entry
+    from visual_odometry_tpu_torch.ops.kernels import (
+        _lib, gather_kernel, matcher_kernel, picp_kernel, segsum_kernel,
+    )
+    from visual_odometry_tpu_torch.parallel import multiseq, posegraph, scaling, sparse_ba
+    from visual_odometry_tpu_torch.utils import synthetic
+    from visual_odometry_tpu_torch.utils.config import VOConfig
+    from visual_odometry_tpu_torch.utils.convert import to_device
+
+    torch.cuda.empty_cache()
+    workloads = path_j_workloads()
+    t0 = time.perf_counter()
+    checks, rows = graft_entry.dryrun_multichip(max(PATH_J_RANKS), device, workloads=workloads)
+    dryrun_s = time.perf_counter() - t0
+    launches = {name: 0 for name in KERNELS}
+    for rank in checks:
+        require(rank["launches"].get("best_match", 0) > 0,
+                f"path J: a dry-run rank launched no K7: {rank['launches']}")
+        for name, v in rank["launches"].items():
+            launches[name] += v
+    for row in rows:
+        for per_rank in row["launches_by_rank"]:
+            for name, v in per_rank.items():
+                launches[name] += v
+
+    # The graft entry's step on the card against the plain versions on the CPU.
+    _lib.reset_launches()
+    fn, (state, frame) = graft_entry.entry()
+    with recording_all(((matcher_kernel, "match_pairs_cuda"),
+                        (picp_kernel, "solve_fused"))) as entry_calls:
+        pose, tri, inl = fn(state, frame)
+        sync(device)
+    entry_launches = {k: v for k, v in _lib.launches.items() if v}
+    for name, v in entry_launches.items():
+        launches[name] += v
+    t1 = time.perf_counter()
+    held_s = {}
+    fn_cpu, _ = graft_entry.entry(device="cpu")
+    pose_c, tri_c, inl_c = fn_cpu(to_device(state, "cpu"), to_device(frame, "cpu"))
+    pose_err = float((pose.cpu() - pose_c).abs().max())
+    tri_err = float((tri.cpu() - tri_c).abs().max())
+    require(pose_err <= GN_POSE_TOL and tri_err <= ENTRY_TRI_TOL and int(inl) == int(inl_c),
+            f"path J entry: pose {pose_err}, triangulations {tri_err} from the CPU's, inliers "
+            f"{int(inl)} vs {int(inl_c)}")
+    entry_k6 = hold_solves_to_plain(entry_calls.pop("solve_fused"), "path J entry")
+    entry_k1 = hold_calls_to_plain(entry_calls, "path J entry")
+    # The same step on a state that tracks: the pose is K6's work, not its start.
+    camera, cfg, t_state, t_frame = graft_entry.tracking_state(device=device)
+    cam_c, cfg_c, _, _ = graft_entry.tracking_state(device="cpu")
+    with recording_all(((matcher_kernel, "match_pairs_cuda"),
+                        (picp_kernel, "solve_fused"))) as track_calls:
+        t_pose, _, t_inl = graft_entry.step_fn(camera, cfg)(t_state, t_frame)
+        sync(device)
+    t_pose_c, _, t_inl_c = graft_entry.step_fn(cam_c, cfg_c)(to_device(t_state, "cpu"),
+                                                             to_device(t_frame, "cpu"))
+    t_pose_err = float((t_pose.cpu() - t_pose_c).abs().max())
+    require(t_pose_err <= GN_POSE_TOL and int(t_inl) == int(t_inl_c) == cfg.n_slots,
+            f"path J tracking step: pose {t_pose_err} from the CPU's, inliers {int(t_inl)} vs "
+            f"{int(t_inl_c)} of {cfg.n_slots}")
+    track_k6 = hold_solves_to_plain(track_calls.pop("solve_fused"), "path J tracking step")
+    track_k1 = hold_calls_to_plain(track_calls, "path J tracking step")
+
+    # Bit for bit: every rank alike; dp against n = 1, sp against the
+    # unsharded chunked call of the same plan on this card, whose launches
+    # are held to the plain versions.
+    require(all(r["ranks_agree"] for r in rows if "ranks_agree" in r),
+            "path J: the ranks of a world returned different results")
+    dp = {r["n_devices"]: r for r in rows if r["metric"] == scaling.DP}
+    require(sorted(dp) == list(PATH_J_RANKS), f"path J: dp rows at n = {sorted(dp)}")
+    require(all(r["output_sha256"] == dp[1]["output_sha256"] for r in dp.values()),
+            "path J dp: a sharded run's trajectories differ from n = 1's")
+    held_s["entry"] = time.perf_counter() - t1
+    deep = synthetic.deep_camera(device=device)
+    sp_bits, held = {}, {}
+    for w in workloads:
+        if w["metric"] != scaling.SP:
+            continue
+        config = VOConfig(n_slots=w["n_slots"], map_capacity=2 * w["n_slots"],
+                          gn_iterations=w["gn_iterations"])
+        seq = [torch.from_numpy(x).to(device) for x in synthetic.generate_tracking_sequence(
+            np.random.default_rng(7), w["frames"], w["n_slots"])]
+        got = [r for r in rows if r["metric"] == scaling.SP and r["workload"] == w["workload"]]
+        require(len(got) == len(w.get("ns") or PATH_J_RANKS),
+                f"path J {w['workload']}: rows at n = {[r['n_devices'] for r in got]}")
+        for r in got:
+            with recording_all(frame_loop_targets()) as calls:
+                ref = posegraph.run_sequence_chunked(deep, config, *seq,
+                                                     num_chunks=r["n_devices"],
+                                                     overlap=w["overlap"], slack=0)[0]
+            require(scaling._digest(ref) == r["output_sha256"],
+                    f"path J {w['workload']} n = {r['n_devices']}: differs from the unsharded call")
+            key = f"sp_{w['workload']}_{r['n_devices']}"
+            sp_bits[key] = True
+            held[key] = hold_calls_to_plain(calls, f"path J {key}")
+    t2 = time.perf_counter()
+    held_s["sp"] = t2 - t1 - held_s["entry"]
+    # A dp rank's block at n = 4: the first 16 sequences, as rank 0 runs them
+    # (the plain frame loop over every sequence's head: ~38 GN rounds a frame).
+    w, n = workloads[0], max(PATH_J_RANKS)
+    config = VOConfig(n_slots=w["n_slots"], map_capacity=2 * w["n_slots"],
+                      gn_iterations=w["gn_iterations"])
+    batch = scaling._dp_batch(w["seqs_total"] // n, w["frames"], w["n_slots"], w["first_seed"])
+    with recording_all(frame_loop_targets()) as calls:
+        multiseq.run_sequences_batched(deep, config, *(torch.from_numpy(x).to(device)
+                                                       for x in batch))
+        sync(device)
+    held[f"dp_rank_block_{n}"] = hold_calls_to_plain(calls, f"path J dp rank block n = {n}",
+                                                     PATH_J_DP_HEAD)
+    held_s["dp"] = time.perf_counter() - t2
+    # An lm rank's shard: one step on rank 0's block, every K9 and K10 call.
+    w = workloads[-1]
+    for n in PATH_J_RANKS[1:]:
+        kj, block, degree = scaling.lm_block(n, 0, w["frames"], w["num_landmarks"],
+                                             w["obs_per_lm"], w["packed"], device)
+        with recording_all(((segsum_kernel, "segment_sum_small_cuda"),
+                            (gather_kernel, "take_table_cuda"))) as calls:
+            sparse_ba.sparse_ba_step(kj, block, damping=0.1, cg_iterations=w["cg_iterations"],
+                                     cg_tolerance=0.0, lm_degree=degree,
+                                     frames=sparse_ba.plan_frames(block))
+            sync(device)
+        require(all(calls.values()), f"path J lm shard n = {n}: {list(map(len, calls.values()))}")
+        held[f"lm_rank_shard_{n}"] = hold_calls_to_plain(calls, f"path J lm shard n = {n}")
+        del calls
+    held_s["lm"] = time.perf_counter() - t2 - held_s["dp"]
+    for key, report in held.items():
+        for name in (("track_frames_cuda",) if key.endswith("_1")
+                     else ("track_frames_batched_cuda",) if key.startswith(("sp", "dp")) else ()):
+            require(report[name]["calls"] > 0, f"path J {key}: no {name} launch was held")
+
+    # The tally depends on shapes alone: the card's equals the CPU's.
+    card_tally = scaling.small_call_tally(device)
+    cpu_tally = scaling.small_call_tally("cpu")
+    require(card_tally == cpu_tally, f"path J: the card's tally {card_tally} differs from the "
+                                     f"CPU's {cpu_tally}")
+    diffs = graft_entry.selfcheck()
+
+    missing = [k for k in PATH_J if launches[k] == 0]
+    require(not missing, f"path J: kernels that never launched: {missing}")
+    report = {
+        "card": smi, "note": "n ranks sharing one card: not a scaling figure",
+        "dryrun_seconds": dryrun_s, "held_to_plain_seconds": held_s,
+        "rows": [{k: v for k, v in r.items() if k != "tally_by_rank"} for r in rows],
+        "dryrun_checks": [{k: v for k, v in c.items() if k in ("mesh", "matcher_idx",
+                                                                "dense_ba_num_obs",
+                                                                "sparse_ba_num_obs", "launches")}
+                          for c in checks],
+        "sp_bitwise": sp_bits, "dp_bitwise": True, "held_to_plain": held,
+        "tally_equal": True, "tally": card_tally,
+        "entry": {"pose_max_abs_err_vs_cpu": pose_err, "num_inliers": int(inl),
+                  "tri_max_abs_err_vs_cpu": tri_err, "launches": entry_launches,
+                  "k6_max_abs_err_vs_plain": entry_k6, "k1_vs_plain": entry_k1},
+        "tracking_step": {"pose_max_abs_err_vs_cpu": t_pose_err, "num_inliers": int(t_inl),
+                          "k6_max_abs_err_vs_plain": track_k6, "k1_vs_plain": track_k1},
+        "selfcheck": diffs, "launches": launches}
+    print(json.dumps({"path_j": report}))
+    for r in rows:
+        print(f"path J {r['metric']} {r.get('workload')} n={r['n_devices']}: partition "
+              f"{r['partition_efficiency']:.4f}, wall {r['wall_ms']:.1f} ms, world "
+              f"{r['world_seconds']:.1f} s")
+    return launches
+
+
 def demangled(text: str) -> str:
     """``text`` with its C++ symbols demangled by c++filt, where there is one."""
     tool = shutil.which("c++filt")
@@ -2541,6 +2859,10 @@ def main() -> int:
         launches["I"] = run_path_i(camera, config, serving[False], path_b, ba_problem, work,
                                    device, smi)
         phase("path I", t0)
+        del serving, ba_problem
+        t0 = time.perf_counter()
+        launches["J"] = run_path_j(device, smi)
+        phase("path J", t0)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -37,6 +37,7 @@ from visual_odometry_tpu_torch.ops.kernels import (
 from visual_odometry_tpu_torch.parallel import multiseq, posegraph, sparse_ba
 from visual_odometry_tpu_torch.utils import roofline, selfcheck, synthetic
 from visual_odometry_tpu_torch.utils.config import VOConfig
+from visual_odometry_tpu_torch.utils.convert import to_device
 
 pytestmark = pytest.mark.cuda
 
@@ -1179,3 +1180,88 @@ def test_two_gloo_ranks_share_the_card_for_the_matcher(dev):
     for res in ranks:
         assert res["launches"] == 1 and res["staged"] > 0
         assert torch.equal(res["match"][0], idx) and torch.equal(res["match"][1], dist)
+
+
+# parallel/scaling and the graft entry on the card.
+
+
+def test_scaling_in_two_gloo_ranks_on_the_card(dev):
+    """dp, sp and lm in a world of one and a world of two gloo ranks sharing
+    the card: dp partitions exactly, sp within its overlap bound, lm at 0.9 or
+    more; every rank returns the same dp and sp results, and dp's equal the
+    world of one's bit for bit. The rows count K8 on the card (the CPU's
+    loop form counts K4)."""
+    from visual_odometry_tpu_torch.parallel import scaling
+
+    _lib.library()
+    ws = [scaling.workload(scaling.DP, seqs_total=4, frames=12, n_slots=64, gn_iterations=10,
+                           reps=1),
+          scaling.workload(scaling.SP, frames=64, n_slots=64, overlap=6, gn_iterations=10, reps=1),
+          scaling.workload(scaling.LM, frames=32, num_landmarks=4096, cg_iterations=8, reps=1,
+                           packed=True)]
+    rows = scaling.measure_workloads((1, 2), ws, device="cuda")
+    by = {(r["metric"], r["n_devices"]): r for r in rows}
+    assert len(by) == 6
+    assert by[(scaling.DP, 2)]["partition_efficiency"] >= 0.95
+    assert by[(scaling.LM, 2)]["partition_efficiency"] >= 0.9
+    sp1, sp2 = by[(scaling.SP, 1)], by[(scaling.SP, 2)]
+    assert sp2["work_per_device"] <= 1.4 * sp1["work_per_device"] * sp2["chunk_len"] / 64
+    assert by[(scaling.DP, 1)]["output_sha256"] == by[(scaling.DP, 2)]["output_sha256"]
+    for row in rows:
+        assert row["transport"] == "gloo" and row["device"] == torch.cuda.get_device_name(dev)
+        assert row.get("ranks_agree", True)
+    for tally in by[(scaling.DP, 2)]["tally_by_rank"]:
+        assert tally["track_frames_batched"][0] == 1 and "track_frames" not in tally
+    assert all(s > 0 for s in by[(scaling.DP, 2)]["staged_bytes"])
+
+
+def test_work_tally_on_the_card_equals_the_cpu(dev):
+    from visual_odometry_tpu_torch.parallel import scaling
+
+    card = scaling.small_call_tally(dev)
+    assert card == scaling.small_call_tally("cpu")
+    assert {"match_pairs", "join_candidates", "gather_rows", "track_frames", "best_match",
+            "segment_sum", "take_table", "picp_solve"} <= set(card)
+
+
+def _step_on_the_card_and_the_cpu(fn, fn_cpu, state, frame):
+    """``fn``'s step on the card's ``state`` and ``fn_cpu``'s (the plain
+    versions) on the same state moved to the CPU, K1 and K6 launched once
+    each: the pose within K6's 1e-5 and the same inlier count. Returns the
+    triangulations' largest difference and the inlier count."""
+    _lib.reset_launches()
+    pose, tri, inl = fn(state, frame)
+    assert _lib.launches["match_pairs"] == 1 and _lib.launches["picp_solve"] == 1
+    pose_c, tri_c, inl_c = fn_cpu(to_device(state, "cpu"), to_device(frame, "cpu"))
+    assert float((pose.cpu() - pose_c).abs().max()) <= 1e-5
+    assert int(inl) == int(inl_c)
+    assert bool(torch.isfinite(tri).all())
+    return float((tri.cpu() - tri_c).abs().max()), int(inl)
+
+
+def test_graft_entry_on_the_card_matches_the_cpu(dev):
+    """``entry()`` runs on the card by default; its step on the card's state
+    equals the plain versions' step on the same state moved to the CPU, the
+    triangulations within the parity bound 5e-4."""
+    from visual_odometry_tpu_torch import graft_entry
+
+    fn, (state, frame) = graft_entry.entry()
+    assert state.x_curr.is_cuda
+    fn_cpu, _ = graft_entry.entry(device="cpu")
+    tri_err, _ = _step_on_the_card_and_the_cpu(fn, fn_cpu, state, frame)
+    assert tri_err <= 5e-4
+
+
+def test_tracking_step_on_the_card_matches_the_cpu(dev):
+    """The entry's step on ``graft_entry.tracking_state``, whose frame tracks
+    every slot as an inlier (the entry's own state tracks none, so K6's pose
+    there is the identity start on both sides). Its triangulations are not
+    held: points near the focus of expansion amplify the pose's last bits
+    (tests/test_torch_graft_entry.py::test_tracking_step_matches_jax)."""
+    from visual_odometry_tpu_torch import graft_entry
+
+    camera, cfg, state, frame = graft_entry.tracking_state(device=dev)
+    cam_c, cfg_c, _, _ = graft_entry.tracking_state(device="cpu")
+    _, inliers = _step_on_the_card_and_the_cpu(graft_entry.step_fn(camera, cfg),
+                                               graft_entry.step_fn(cam_c, cfg_c), state, frame)
+    assert inliers == cfg.n_slots

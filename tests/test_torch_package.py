@@ -1,7 +1,9 @@
 """Packaging contracts of visual_odometry_tpu_torch: it never imports JAX or
-the JAX package, imports no GPU machinery at import time, and chip_smoke.py
-refuses to report a result on a host without a CUDA card."""
+the JAX package, imports no GPU machinery at import time, chip_smoke.py
+refuses to report a result on a host without a CUDA card, and every public
+name of the JAX package has a counterpart in the port or a documented reason."""
 
+import ast
 import os
 import re
 import subprocess
@@ -12,6 +14,42 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "visual_odometry_tpu_torch")
+JAX_PKG = os.path.join(ROOT, "visual_odometry_tpu")
+
+# Public names of the JAX package that the port's matching module does not
+# define under the same name. Renamed: (JAX module, name) -> "port module:its
+# name" (README.md, "The PyTorch/CUDA port", shows both tables).
+RENAMED = {
+    ("ops/matching.py", "pairwise_sq_dists"):
+        "ops/kernels/matcher_kernel.py:pairwise_sq_dists",
+    ("ops/pallas/matcher_kernel.py", "match_pairs_pallas"):
+        "ops/kernels/matcher_kernel.py:match_pairs",
+    ("ops/pallas/matcher_kernel.py", "best_match_pallas"):
+        "ops/kernels/matcher_kernel.py:best_match",
+    ("ops/pallas/frame_kernel.py", "track_frames_fused"):
+        "ops/kernels/frame_kernel.py:track_frames",
+    ("ops/pallas/frame_kernel.py", "track_frames_fused_serving"):
+        "ops/kernels/frame_kernel.py:track_frames_batched",
+    ("ops/pallas/gather_kernel.py", "take_lanes"): "ops/kernels/gather_kernel.py:gather_rows",
+    ("ops/pallas/picp_kernel.py", "gn_loop"): "ops/kernels/frame_kernel.py:track_frames",
+    ("ops/pallas/picp_kernel.py", "gn_loop_se2"): "ops/kernels/frame_kernel.py:track_frames",
+    ("ops/pallas/picp_kernel.py", "gn_loop_batched"):
+        "ops/kernels/frame_kernel.py:track_frames_batched",
+    ("ops/pallas/picp_kernel.py", "gn_loop_se2_batched"):
+        "ops/kernels/frame_kernel.py:track_frames_batched",
+    ("ops/pallas/picp_kernel.py", "linearize_pallas"): "ops/kernels/picp_kernel.py:linearize",
+}
+# ... and not carried over, with the reason.
+NOT_CARRIED_OVER = {
+    "Array": "the jnp.ndarray alias of every JAX module; the port annotates torch.Tensor",
+    "V5E": "utils/roofline's TPU v5e peaks; the port reads the card's from spec_for",
+    "V5E_BF16": "the same, bf16",
+    "dispatch_overhead_s": "a TPU tunnel's dispatch latency; roofline.launch_floor measures "
+                           "the card's",
+    "PALLAS_MIN_DB": "ops/matching's TPU routing threshold; the port launches K7 for any "
+                     "CUDA tensor",
+    "LANE": "the TPU's 128-lane vector width, a Pallas tiling constant",
+}
 
 
 def _modules():
@@ -105,7 +143,8 @@ def test_kernel_library_lists_every_source_and_symbol():
     for new in ("ops.picp", "ops.picp_se2", "ops.linalg6", "ops.stats", "ops.kernels.picp_kernel",
                 "utils.checkpoint", "utils.timing", "utils.profiling",
                 "ops.kernels.segsum_kernel", "parallel", "parallel.multiseq",
-                "parallel.sparse_ba", "parallel.bundle_adjustment", "models.refinement"):
+                "parallel.sparse_ba", "parallel.bundle_adjustment", "models.refinement",
+                "parallel.scaling", "graft_entry"):
         assert "visual_odometry_tpu_torch." + new in mods
     for src in ("track_frames.cu", "picp_linearize.cu", "take_table.cu", "segment_sum.cu"):
         assert src in _lib.SOURCES
@@ -199,3 +238,76 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     with pytest.raises(RuntimeError, match="directory"):
         with profiling.trace(str(blocked)):
             torch.ones(4).sum()
+
+
+def _names(path: str, imported: bool = False) -> set:
+    """Top-level functions, classes and assigned names of a module, by ``ast``
+    (nothing is imported); with ``imported`` also the names its ``from``
+    imports bind."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+        elif imported and isinstance(node, ast.ImportFrom):
+            names.update(a.asname or a.name for a in node.names)
+    return names
+
+
+def _public(names: set) -> set:
+    return {n for n in names if not n.startswith("_")}
+
+
+def _jax_modules():
+    """(JAX source, its port's source) for every module of the JAX package,
+    ``ops/pallas`` mapped to ``ops/kernels``, and the root ``__graft_entry__``
+    to ``graft_entry``."""
+    pairs = []
+    for dirpath, _, files in os.walk(JAX_PKG):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), JAX_PKG)
+                pairs.append((rel, rel.replace(os.path.join("ops", "pallas"),
+                                               os.path.join("ops", "kernels"))))
+    pairs.append(("../__graft_entry__.py", "graft_entry.py"))
+    return sorted(pairs)
+
+
+@pytest.mark.parametrize("jax_rel,port_rel", _jax_modules())
+def test_every_public_jax_name_has_a_counterpart(jax_rel, port_rel):
+    """Walks the JAX module's public names with ``ast`` (no JAX import) and
+    requires each in the port's matching module, or in RENAMED (the port's
+    name must exist where the table says) or NOT_CARRIED_OVER. The root entry
+    also keeps its ``_synthetic_state``."""
+    port = os.path.join(PKG, port_rel)
+    assert os.path.isfile(port), f"no port of {jax_rel}: {port_rel} is missing"
+    have = _names(port, imported=True)
+    wanted = _public(_names(os.path.join(JAX_PKG, jax_rel)))
+    if port_rel == "graft_entry.py":
+        wanted.add("_synthetic_state")
+    missing = []
+    for name in sorted(wanted - have):
+        renamed = RENAMED.get((jax_rel.replace(os.sep, "/"), name))
+        if renamed is not None:
+            module, port_name = renamed.split(":")
+            assert port_name in _names(os.path.join(PKG, module)), renamed
+        elif name not in NOT_CARRIED_OVER:
+            missing.append(name)
+    assert not missing, f"{jax_rel}: no counterpart in {port_rel} for {missing}"
+
+
+def test_not_carried_over_table_is_current():
+    """Every RENAMED and NOT_CARRIED_OVER entry names a JAX public name that the
+    port's matching module really lacks: the tables hold no stale line."""
+    lacking = set()
+    for jax_rel, port_rel in _jax_modules():
+        gap = (_public(_names(os.path.join(JAX_PKG, jax_rel)))
+               - _names(os.path.join(PKG, port_rel), imported=False))
+        lacking |= {(jax_rel.replace(os.sep, "/"), n) for n in gap}
+    assert set(RENAMED) <= lacking
+    assert set(NOT_CARRIED_OVER) <= {n for _, n in lacking}

@@ -173,17 +173,25 @@ def test_frame_helpers_choose_by_device_alone(monkeypatch):
     """``sparse_ba``'s frame-space gather and sum send every CUDA tensor to
     K10 / K9 with ``backend="cuda"``, whatever its width or the number of
     poses (the wrappers raise past their limits; nothing gives way to the
-    plain version on the card), and every CPU tensor to the plain version."""
+    plain version on the card), and every CPU tensor to the plain version,
+    through the same dispatchers with ``backend="torch"`` (so the work tally
+    counts it)."""
     class OnCard(torch.Tensor):
         is_cuda = True
 
     calls = []
-    monkeypatch.setattr(tsba.gather_kernel, "take_table",
-                        lambda table, idx, backend, transpose_out: calls.append(("K10", backend))
-                        or table[:, :1])
-    monkeypatch.setattr(tsba.segsum_kernel, "segment_sum_small",
-                        lambda v, seg, t, backend, plan=None: calls.append(("K9", backend))
-                        or v[:1])
+    take, segsum = tsba.gather_kernel.take_table, tsba.segsum_kernel.segment_sum_small
+
+    def take_stub(table, idx, backend, transpose_out):
+        calls.append(("K10", backend))
+        return table[:, :1] if backend == "cuda" else take(table, idx, backend, transpose_out)
+
+    def segsum_stub(v, seg, t, backend, plan=None):
+        calls.append(("K9", backend))
+        return v[:1] if backend == "cuda" else segsum(v, seg, t, backend, plan)
+
+    monkeypatch.setattr(tsba.gather_kernel, "take_table", take_stub)
+    monkeypatch.setattr(tsba.segsum_kernel, "segment_sum_small", segsum_stub)
     fi = torch.zeros(5, dtype=torch.int32)
     for f, r in ((40, 6), (2000, 6), (40, 100)):
         tsba._gather_frame_rows(torch.zeros((f, r)).as_subclass(OnCard), fi)
@@ -191,7 +199,7 @@ def test_frame_helpers_choose_by_device_alone(monkeypatch):
     assert calls == [("K10", "cuda"), ("K9", "cuda")] * 3
     assert tsba._gather_frame_rows(torch.ones((2000, 100)), fi).shape == (5, 100)
     assert tsba._segsum_frame_rows(torch.ones((5, 100)), fi, 2000)[0, 0] == 5.0
-    assert len(calls) == 6
+    assert calls[6:] == [("K10", "torch"), ("K9", "torch")]
 
 
 def test_generate_ba_corridor_matches_jax():

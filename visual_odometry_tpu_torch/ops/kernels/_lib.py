@@ -16,7 +16,9 @@ Nothing here runs at import: a CPU host imports this module, never builds.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -25,9 +27,11 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
+from ...utils import roofline
 from ...utils.config import BACKENDS
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -58,6 +62,48 @@ launches = {
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+# Work per kernel function, whichever backend computes it, counted only
+# inside :func:`counting_work` (None outside it, where a dispatch pays one
+# test): each dispatcher adds its ``utils/roofline`` model at the call's
+# shapes (GN rounds at the budget, so the count depends on shapes alone):
+# {name: [calls, tensor-core FLOPs, FP32 operations, bytes, least seconds on
+# roofline.H100]}. parallel/scaling reads it a rank.
+work: Optional[dict] = None
+
+
+@functools.lru_cache(maxsize=4096)
+def _counts(model_fn, args: tuple) -> tuple:
+    """A model's counts and least time on roofline.H100, reckoned once a shape."""
+    m = model_fn(*args)
+    return m.tc_flops, m.fp32_ops, m.hbm_bytes, m.speed_of_light_s(roofline.H100)
+
+
+def tally(name: str, model_fn, *args) -> None:
+    """Add ``model_fn(*args)``, a ``utils/roofline`` model, to ``work[name]``
+    while :func:`counting_work` is active."""
+    if work is None:
+        return
+    counts = _counts(model_fn, args)
+    row = work.get(name)
+    if row is None:
+        row = work[name] = [0, 0.0, 0.0, 0.0, 0.0]
+    row[0] += 1
+    for i, c in enumerate(counts, 1):
+        row[i] += c
+
+
+@contextlib.contextmanager
+def counting_work():
+    """Tally the work of every dispatch inside the block into a fresh dict,
+    which it yields."""
+    global work
+    outer, work = work, {}
+    try:
+        yield work
+    finally:
+        work = outer
 
 
 def use_kernel(backend: str, tensor: torch.Tensor) -> bool:

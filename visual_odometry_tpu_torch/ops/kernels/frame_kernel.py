@@ -34,6 +34,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ...utils import roofline
 from .. import se3
 from . import _lib
 
@@ -102,6 +103,7 @@ def join_candidates(src_idx2, src_valid, dst_idx1, dst_valid, depth: int,
     """For output lane j' of frame f, candidate k is the k-th smallest source
     lane j with ``src_idx2[f, j] == dst_idx1[f, j']`` among valid source lanes
     (the static part of vo_complete.cpp:55-63's first-wins join)."""
+    _lib.tally("join_candidates", roofline.join_model, *src_idx2.shape, depth)
     if _lib.use_kernel(backend, src_idx2):
         return join_candidates_cuda(src_idx2, src_valid, dst_idx1, dst_valid, depth)
     return join_candidates_plain(src_idx2, src_valid, dst_idx1, dst_valid, depth)
@@ -547,6 +549,9 @@ def track_frames(
     and the join chains from :func:`join_candidates`. Returns poses (F, 4, 4),
     tri_points (F, S, 3), tri_valid (F, S) and stats (F, 4) =
     [chi_inliers, chi_outliers, num_inliers, num_solver_corr]."""
+    f, depth, s = cand.idx.shape
+    _lib.tally("track_frames_planar" if planar else "track_frames",
+               roofline.frame_model, f, s, depth, num_iterations, planar)
     params = pack_params(camera_matrix, cam_params, x_init, kernel_threshold, damping,
                          tolerance, keep_outliers, warm_start, min_num_inliers, planar,
                          cam_in_robot)
@@ -629,6 +634,9 @@ def track_frames_batched(
     no valid correspondence runs ``min_iterations`` rounds a frame (the whole
     budget under ``tolerance < 0``) on zero sums and keeps its start pose or
     the identity; nothing in it is NaN."""
+    n, f, depth, s = cand.idx.shape
+    _lib.tally("track_frames_batched_planar" if planar else "track_frames_batched",
+               roofline.serving_model, n, f, s, depth, num_iterations, planar)
     params = pack_params(camera_matrix, cam_params, x_init[0], kernel_threshold, damping,
                          tolerance, keep_outliers, warm_start, min_num_inliers, planar,
                          cam_in_robot)

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils import roofline
 from . import _lib
 
 def gather_rows_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -62,6 +63,8 @@ def gather_rows_cuda(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def gather_rows(src: torch.Tensor, idx: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     """``out[..., j, :] = src[..., clamp(idx[..., j], 0, S - 1), :]`` for
     records src (..., S, D) and indices (..., S)."""
+    s = idx.shape[-1]
+    _lib.tally("gather_rows", roofline.gather_model, idx.numel() // max(s, 1), s, src.shape[-1])
     if _lib.use_kernel(backend, src):
         return gather_rows_cuda(src, idx)
     return gather_rows_plain(src, idx)
@@ -106,6 +109,8 @@ def take_table(table: torch.Tensor, idx: torch.Tensor, backend: str = "auto",
     """``out[r, n] = table[r, idx[n]]`` for a small shared table (R, T) and
     indices (N,), clipped to ``[0, T - 1]``; returns (R, N), or its transpose
     (N, R) with ``transpose_out``."""
+    _lib.tally("take_table", roofline.take_table_model, idx.shape[0], table.shape[1],
+               table.shape[0])
     if _lib.use_kernel(backend, table):
         return take_table_cuda(table, idx, transpose_out)
     return take_table_plain(table, idx, transpose_out)

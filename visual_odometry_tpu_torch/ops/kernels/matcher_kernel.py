@@ -26,6 +26,7 @@ from typing import Tuple
 
 import torch
 
+from ...utils import roofline
 from . import _lib
 
 BIG = 3.4e38  # masked distance, selected before any comparison
@@ -84,6 +85,7 @@ def match_pairs(app1, mask1, app2, mask2, backend: str = "auto") -> Tuple[torch.
     the frame-1 index best matching frame-2 point j, ``best2[i]`` the frame-2
     index best matching frame-1 point i; first index wins ties, all-masked
     rows give index 0 at distance 3.4e38."""
+    _lib.tally("match_pairs", roofline.match_pairs_model, *app1.shape)
     if _lib.use_kernel(backend, app1):
         return match_pairs_cuda(app1, mask1, app2, mask2)
     return match_pairs_plain(app1, mask1, app2, mask2)
@@ -217,6 +219,8 @@ def best_match(queries, q_mask, db, db_mask, backend: str = "auto", fast: bool =
     database gives index 0), a masked query returns 3.4e38. With ``fast`` the
     selection runs on a bfloat16-rounded gram and the returned distance is
     the exact float32 one of the returned index."""
+    _lib.tally("best_match_fast" if fast else "best_match", roofline.matcher_model,
+               queries.shape[0], db.shape[0], queries.shape[1], "fast" if fast else "highest")
     if _lib.use_kernel(backend, queries):
         return best_match_cuda(queries, q_mask, db, db_mask, fast)
     return best_match_plain(queries, q_mask, db, db_mask, fast)

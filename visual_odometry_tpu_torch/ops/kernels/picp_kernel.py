@@ -44,6 +44,7 @@ from typing import Tuple
 
 import torch
 
+from ...utils import roofline
 from ..picp import PICPStats
 from . import _lib
 from .frame_kernel import _block_sum, _gn_lane_rows, _gn_loop_plain, mount_rows, pack_params
@@ -139,6 +140,8 @@ def _solve_cuda(camera_matrix, pose0, cam_params, mount, world_points, measured_
 def _solve(backend, planar, camera_matrix, world_in_camera, cam_params, cam_in_robot,
            world_points, measured_points, weights, num_iterations, kernel_threshold, damping,
            tolerance, keep_outliers, min_num_inliers, min_iterations, rounds_out=None):
+    _lib.tally("picp_solve_se2" if planar else "picp_solve",
+               roofline.picp_model, world_points.shape[0], num_iterations, planar)
     points = (_f32(world_points), _f32(measured_points), _f32(weights))
     if _lib.use_kernel(backend, world_points):
         dev = world_points.device
@@ -266,6 +269,7 @@ def linearize(camera_matrix, world_in_camera, cam_params, world_points, measured
     (4, 4), cam_params (4,) = [z_near, z_far, cols, rows], world (N, 3),
     measurements (N, 2), weights (N,). Returns H (6, 6), b (6,) and the stats.
     Dead slots must hold finite values (``ops.picp.solve`` sanitizes them)."""
+    _lib.tally("picp_linearize", roofline.linearize_model, world_points.shape[0])
     args = (*(_f32(x) for x in (camera_matrix, world_in_camera, cam_params, world_points,
                                 measured_points, weights)), kernel_threshold, keep_outliers)
     if _lib.use_kernel(backend, world_points):

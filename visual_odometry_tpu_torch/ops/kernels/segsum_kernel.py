@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ...utils import roofline
 from . import _lib
 
 
@@ -105,6 +106,8 @@ def segment_sum_small(values: torch.Tensor, seg: torch.Tensor, num_segments: int
     """(T, R) sums of the rows of ``values`` (N, R) by segment id ``seg`` (N,);
     rows whose id is outside ``[0, T)`` add nothing (pass T for masked rows).
     ``plan``, if given, is :func:`plan_segments` of ``seg`` and saves its sort."""
+    _lib.tally("segment_sum", roofline.segment_sum_model, values.shape[0], num_segments,
+               values.shape[1])
     if _lib.use_kernel(backend, values):
         return segment_sum_small_cuda(values.to(torch.float32).contiguous(),
                                       seg.to(torch.int32).contiguous(), num_segments, plan)

@@ -31,6 +31,7 @@ import torch
 
 from . import linalg6, se3
 from .camera import Camera, project_points
+from ..utils import roofline
 from .kernels import _lib
 
 
@@ -171,6 +172,10 @@ def solve(camera: Camera, world_points, measured_points, weights, num_iterations
         )
         return with_pose(camera, pose), stats
 
+    # This loop stands where K6 runs on the card, but it is not K6's dispatcher
+    # (``solve_fused``, whose plain version mirrors the kernel's arithmetic),
+    # so it tallies K6's work itself.
+    _lib.tally("picp_solve", roofline.picp_model, world_points.shape[0], num_iterations)
     live = weights > 0.0
     world_points = torch.where(live[:, None], world_points, torch.ones_like(world_points))
     measured_points = torch.where(live[:, None], measured_points,

@@ -100,20 +100,18 @@ def _gather_frame_rows(v: torch.Tensor, frame_idx: torch.Tensor,
                        by_row: bool = False) -> torch.Tensor:
     """(F, R) table gathered by frame id to (N, R), or to (R, N) with
     ``by_row``: K10 on the card, which reads ``v`` in place through its
-    strides and writes the layout asked for."""
-    if v.is_cuda:
-        return gather_kernel.take_table(v.T, frame_idx, backend="cuda", transpose_out=not by_row)
-    out = v[frame_idx.long()]
-    return out.T if by_row else out
+    strides and writes the layout asked for; its plain version on the CPU."""
+    return gather_kernel.take_table(v.T, frame_idx, backend="cuda" if v.is_cuda else "torch",
+                                    transpose_out=not by_row)
 
 
 def _segsum_frame_rows(vals: torch.Tensor, frame_idx: torch.Tensor, f: int,
                        plan: Optional[segsum_kernel.SegmentPlan] = None) -> torch.Tensor:
     """(N, R) rows summed into (F, R) by frame id (id >= f drops the row): K9
-    on the card. ``plan`` is ``segsum_kernel.plan_segments(frame_idx, f)``."""
-    if vals.is_cuda:
-        return segsum_kernel.segment_sum_small(vals, frame_idx, f, backend="cuda", plan=plan)
-    return segsum_kernel.segment_sum_small_plain(vals, frame_idx, f, plan)
+    on the card, its plain version on the CPU. ``plan`` is
+    ``segsum_kernel.plan_segments(frame_idx, f)``."""
+    return segsum_kernel.segment_sum_small(vals, frame_idx, f,
+                                           backend="cuda" if vals.is_cuda else "torch", plan=plan)
 
 
 def plan_frames(problem: SparseBAProblem) -> Tuple[torch.Tensor, segsum_kernel.SegmentPlan]:

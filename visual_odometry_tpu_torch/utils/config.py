@@ -110,3 +110,7 @@ class VOConfig:
 
 
 DEFAULT_CONFIG = VOConfig()
+
+# Accuracy-first preset: tracking, then 15 iterations of global bundle
+# adjustment (models/refinement; README's accuracy-first run).
+ACCURATE_CONFIG = VOConfig(refine_iterations=15)

@@ -38,6 +38,14 @@ def _t(x, dtype, device):
     return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
 
 
+def to_device(tree, device):
+    """A nest of tensors (NamedTuples of them, such as a VOState or a
+    FrameData) with every tensor moved to ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return type(tree)(*(to_device(x, device) for x in tree))
+
+
 def camera_from_arrays(K, rows, cols, z_near, z_far, world_in_camera=None, device="cpu") -> Camera:
     return Camera.create(np.asarray(K, np.float32), world_in_camera, rows=float(rows),
                          cols=float(cols), z_near=float(z_near), z_far=float(z_far),

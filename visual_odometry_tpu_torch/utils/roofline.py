@@ -42,6 +42,7 @@ import dataclasses
 import json
 import statistics
 import time
+import types
 from typing import Dict, Tuple
 
 import numpy as np
@@ -88,6 +89,11 @@ def spec_for(props) -> ChipSpec:
     sms = int(props.multi_processor_count)
     return ChipSpec(name=props.name, sms=sms, fp32_ops=sms * FP32_LANES_PER_SM * clock,
                     tc_bf16_flops=tc, hbm_bw=hbm_bw)
+
+
+# The card a work tally is reckoned against on any device (``ops/kernels/_lib.tally``,
+# ``parallel/scaling``): an H100 SXM5, 132 SMs.
+H100 = spec_for(types.SimpleNamespace(name="NVIDIA H100 80GB HBM3", multi_processor_count=132))
 
 
 # --- models ------------------------------------------------------------------
