@@ -5,6 +5,8 @@ processes.
     python3 chip_ab.py launch OTHER_ROOT [--pairs 3] [--reps 200]
     python3 chip_ab.py kernels OTHER_ROOT [--pairs 3] [--reps 5]
     python3 chip_ab.py phases
+    python3 chip_ab.py selfcheck OTHER_ROOT [--pairs 1]
+    python3 chip_ab.py gn_rounds OTHER_ROOT [--pairs 1]
 
 Runs one worker for OTHER_ROOT and one for this checkout in the order other,
 this, this, other, other, this, ... (``--pairs`` of each), every worker a
@@ -63,6 +65,24 @@ registers and spill stores, its ms (CUDA events, median of ``--reps``),
 whether its outputs equal the package's K4 bit for bit, and for the stamped
 builds the cycles a round spends in each phase (averaged over a cluster's
 CTAs). Never built or loaded by the package.
+
+``selfcheck``: ``utils/selfcheck.check_frame_pipeline``'s comparison (the
+fused path, K1-K4, against the per-frame step form with the plain solve, 64
+slots x 10 frames under ``deep_camera``) at seeds 1-30, with the gap
+reported and not held to the check's 2e-3: ``frame_traj_diff`` a seed,
+``over_2e-3`` (seeds over it), ``median`` and ``max``.
+
+``gn_rounds``: K4's plain version over path B's first 256 tracked frames
+(chip_smoke.kernel_inputs, 1,024 slots; each checkout bootstraps with its
+own pipeline), the GN rounds of each frame (``rounds``), then again with the
+bootstrap's output moved by one ulp (``torch.nextafter``): the start pose's
+x translation up (``x_init_tx_up``) and down (``x_init_tx_down``), its first
+rotation entry up (``x_init_r00_up``), and every triangulated point's
+coordinates up (``tri_up``); each row gives the rounds a frame, their mean
+and the frames whose count differs from ``rounds``. Also K4's ms over the
+full 510 frames (CUDA events, median of ``--reps``), the start pose's
+entries as hex floats and the triangulation's SHA-256, so two checkouts'
+bootstraps can be compared.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -489,6 +509,73 @@ def _phases(reps: int) -> dict:
     return report
 
 
+def _selfcheck(reps: int) -> dict:
+    import torch
+
+    from visual_odometry_tpu_torch.models import pipeline
+    from visual_odometry_tpu_torch.utils import selfcheck, synthetic
+    from visual_odometry_tpu_torch.utils.config import VOConfig
+
+    device = torch.device("cuda")
+    camera = synthetic.deep_camera(device=device)
+    config = VOConfig(n_slots=64, map_capacity=128, gn_iterations=30)
+    step = config.replace(scan_backend="step", solver_backend="torch")
+    gaps = []
+    for seed in range(1, 31):
+        pts, apps, masks = (x.to(device) for x in selfcheck.sequence_inputs(seed))
+        traj_f, _, _ = pipeline.run_sequence(camera, config, pts, apps, masks)
+        traj_x, _, _ = pipeline.run_sequence(camera, step, pts, apps, masks)
+        gaps.append(float((traj_x - traj_f).abs().max()))
+    return {"frame_traj_diff": gaps, "over_2e-3": sum(g >= 2e-3 for g in gaps),
+            "median": statistics.median(gaps), "max": max(gaps)}
+
+
+def _gn_rounds(reps: int) -> dict:
+    import torch
+
+    import chip_smoke   # the worker's own root is first on sys.path
+    from visual_odometry_tpu_torch.ops.kernels import frame_kernel
+    from visual_odometry_tpu_torch.utils import synthetic
+    from visual_odometry_tpu_torch.utils.config import VOConfig
+
+    device = torch.device("cuda")
+    camera = synthetic.deep_camera(device=device)
+    config = VOConfig(n_slots=1024, map_capacity=2048)
+    args = chip_smoke.kernel_inputs(camera, config, *chip_smoke.path_b_inputs(512, 1024, device))
+    args = args["track_frames"]
+    head = chip_smoke.head_frames(args, 256)
+
+    def rounds_of(a):
+        rounds = []
+        frame_kernel.track_frames_plain(*a, rounds_out=rounds)
+        return rounds
+
+    def nudged(i, up):
+        x = head[0].clone()
+        x[i] = torch.nextafter(x[i], torch.tensor(float("inf") if up else float("-inf"),
+                                                  device=device))
+        return x
+
+    base = rounds_of(head)
+    tri, tri_ok = head[1], head[2]
+    inf = torch.full_like(tri, float("inf"))
+    tri_up = torch.where(tri_ok[:, None], torch.nextafter(tri, inf), tri)
+    # pack_params: entries 28-39 hold the start pose's 3 x 4 rows.
+    variants = {"x_init_tx_up": (nudged(31, True),) + head[1:],
+                "x_init_tx_down": (nudged(31, False),) + head[1:],
+                "x_init_r00_up": (nudged(28, True),) + head[1:],
+                "tri_up": (head[0], tri_up) + head[2:]}
+    out = {"rounds": base, "mean": sum(base) / len(base),
+           "x_init_hex": [float(v).hex() for v in head[0][28:40].cpu()],
+           "tri_sha": _sha((tri, tri_ok)), "tri_valid": int(tri_ok.sum()),
+           "k4_ms": _ms(lambda: frame_kernel.track_frames_cuda(*args), reps)}
+    for name, a in variants.items():
+        r = rounds_of(a)
+        out[name] = {"rounds": r, "mean": sum(r) / len(r),
+                     "frames_differing": sum(x != y for x, y in zip(r, base))}
+    return out
+
+
 def worker(mode: str, root: str, reps: int) -> int:
     import torch
 
@@ -499,20 +586,23 @@ def worker(mode: str, root: str, reps: int) -> int:
     from visual_odometry_tpu_torch.ops.kernels import _lib
 
     _lib.build()
-    result = {"serving": _serving, "launch": _launch, "kernels": _kernels}[mode](reps)
+    result = {"serving": _serving, "launch": _launch, "kernels": _kernels,
+              "selfcheck": _selfcheck, "gn_rounds": _gn_rounds}[mode](reps)
     print(json.dumps({"root": root, mode: result}))
     return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("serving", "launch", "kernels", "phases"))
+    ap.add_argument("mode", choices=("serving", "launch", "kernels", "phases", "selfcheck",
+                                     "gn_rounds"))
     ap.add_argument("other", nargs="?")
     ap.add_argument("--pairs", type=int, default=None)
     ap.add_argument("--reps", type=int, default=None)
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
-    reps = a.reps or {"serving": 5, "launch": 200, "kernels": 5, "phases": 3}[a.mode]
+    reps = a.reps or {"serving": 5, "launch": 200, "kernels": 5, "phases": 3, "selfcheck": 1,
+                      "gn_rounds": 5}[a.mode]
     if a.worker:
         return worker(a.mode, os.path.abspath(a.other), reps)
     import torch
@@ -527,7 +617,7 @@ def main() -> int:
         ap.error(f"{a.mode} needs OTHER_ROOT")
     if a.mode == "kernels":
         _prepare_kernel_inputs()
-    pairs = a.pairs or (5 if a.mode == "serving" else 3)
+    pairs = a.pairs or {"serving": 5, "selfcheck": 1, "gn_rounds": 1}.get(a.mode, 3)
     other = os.path.abspath(a.other)
     order = [("other", "this") if i % 2 == 0 else ("this", "other") for i in range(pairs)]
     ab = {}

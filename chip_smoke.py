@@ -35,7 +35,13 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      ms; K6 and K11 rows carry them too, with their launch geometry, GN
      rounds and device us a round (K6), and the launch floor (a one-float
      fill's times) beside the bound;
-     K11 linearization at N = 1024 and 8192, twice bit for bit alike; every
+     K11 linearization at N = 1024 and 8192, twice bit for bit alike; P1
+     (eight_point, port-only: the JAX package's XLA eight-point step) at
+     path E's 64 pairs x 128 correspondences, path B's pair x 1,024 and
+     path H's 4 chunk pairs, bit for bit against its plain version and twice
+     alike, batch-invariant at B = 1, 16, 32 and 64 with
+     pipeline.initialize_batched and the batched merge_stream, beside the
+     stacked torch.linalg form of the step (its library time); every
      row's bound_ms and bound_by come from a utils/roofline work model at
      the row's shapes (and GN rounds) against this card's spec;
   3b. utils/selfcheck.run_all's eight checks on the card, each with its
@@ -82,14 +88,16 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      (one K6 launch a tracked frame), held against the fused launch;
   9b. path H: chunked tracking, parallel.posegraph.run_sequence_chunked on
      path B's inputs as 4 chunks (overlap 10, the default slack; K1 three
-     times, one K2, three K3, one K8 over the chunks, no K4), held bit for bit
+     times, one K2, three K3, one K8 over the chunks, no K4, one P1 and one
+     merge_stream call), held bit for bit
      against its loop form (the same plan and stitch, K4 once a chunk) and
      against path B's
      trajectory (mean |e_theta| < 1e-4, translation ratios within 5% of their
      median), and its frames/s beside path B's.
   10. path E: serving, parallel.multiseq.run_sequences_batched over 64
      sequences x 128 frames x 128 slots (landmark fields 100-163, none left
-     out; K1-K3 once a stage over the flattened batch, K8 once), each sequence
+     out; K1-K3 once a stage over the flattened batch, K8 once, P1 and
+     merge_stream once), each sequence
      held against its own run_sequence and to a full set of inliers in every
      frame, and a planar batch of 8;
   11. path F: refinement — (1) path A's dataset through run_vo_complete with
@@ -178,7 +186,10 @@ KERNELS = {
     "segment_sum": (_CSRC + "segment_sum.cu", _PALLAS + "segsum_kernel.py:54", "F"),
     "take_table": (_CSRC + "take_table.cu", _PALLAS + "gather_kernel.py:129", "F"),
     "picp_linearize": (_CSRC + "picp_linearize.cu", _PALLAS + "picp_kernel.py:141", "G"),
+    # P1, port-only: the JAX package computes the eight-point pose with XLA (no pallas_call).
+    "eight_point": (_CSRC + "eight_point.cu", "visual_odometry_tpu/ops/epipolar.py:287", "E"),
 }
+PORT_ONLY = ("eight_point",)
 MAIN_PATH = ("match_pairs", "join_candidates", "gather_rows", "track_frames")
 K3_PATH_LAUNCHES = 3   # a tracked sequence gathers previous pixels, current pixels, appearances
 # Path A's applications run K1-K7 except the standalone planar solve.
@@ -193,9 +204,10 @@ K11_RTOL = 1e-5                  # of the system's largest entry (bitwise expect
 SERVE_B, SERVE_FRAMES, SERVE_SLOTS = 64, 128, 128
 CHUNKS, CHUNK_OVERLAP = 4, 10    # path H: path B's sequence as 4 chunks
 # Path H's launches: K1 for the bootstrap scores, the chunks' bootstrap pairs and
-# their flattened pairs; one K2; three K3; one K8 over the chunks; no K4.
+# their flattened pairs; one K2; three K3; one K8 over the chunks; no K4; one P1
+# for the chunks' bootstraps.
 PATH_H = {"match_pairs": 3, "join_candidates": 1, "gather_rows": K3_PATH_LAUNCHES,
-          "track_frames_batched": 1, "track_frames": 0}
+          "track_frames_batched": 1, "track_frames": 0, "eight_point": 1}
 CHUNK_RATIO_TOL = 0.05   # each frame's translation ratio to serial path B, about their median
 BA_POSES, BA_LANDMARKS, BA_STEPS, BA_CG = 512, 100_000, 3, 64
 MESH_SHARDS = 4            # path I: ranks sharing the card over gloo
@@ -247,11 +259,13 @@ def prefixed(prefix: str, row: dict) -> dict:
 
 
 def same_bits(*pairs) -> bool:
-    """Whether each (a, b) pair of 4-byte tensors holds the same bits."""
+    """Whether each (a, b) pair of tensors holds the same bits."""
     import torch
 
-    return all(torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
-               for a, b in pairs)
+    def raw(t):
+        return t.contiguous().reshape(-1).view(torch.uint8)
+
+    return all(a.shape == b.shape and torch.equal(raw(a), raw(b)) for a, b in pairs)
 
 
 def roofline_bound(model, device) -> dict:
@@ -703,6 +717,178 @@ def compare_matchers(device, table, backend: str = "cuda", nq: int = 1024, nk: i
             library_ms=None)
 
 
+def eight_point_args(camera, config, pts, apps, masks):
+    """P1's arguments as ``pipeline.initialize_batched`` builds them for the
+    frame pairs 0/1 of (B, F, S, ...) sequences (one K1 launch matches them)."""
+    import torch
+
+    from visual_odometry_tpu_torch.models import pipeline
+
+    ids = torch.full(masks.shape, -1, dtype=torch.int32, device=masks.device)
+    f0, f1 = (pipeline.FrameData(*(x[:, i].contiguous() for x in (pts, apps, masks, ids)))
+              for i in (0, 1))
+    corr = pipeline._batched_match(config, False, f1, f0)
+    return (camera.camera_matrix.contiguous(), corr.idx1.contiguous(), corr.idx2.contiguous(),
+            corr.valid.contiguous(), f0.points, f1.points, f0.mask, f1.mask), (f0, f1, corr)
+
+
+def linalg_eight_point(k, idx1, idx2, valid, p1, p2, mask1, mask2):
+    """The same step as stacked library calls: the normal matrices by a
+    batched matmul, the null vectors by ``torch.linalg.eigh`` and
+    ``solve_ex`` (ops/epipolar._null_vector), the 3x3 SVDs by
+    ``torch.linalg.svd``, the votes batched. The yardstick of P1's row
+    (``library_ms``); the port never calls it."""
+    import torch
+
+    from visual_odometry_tpu_torch.ops import epipolar, se3, triangulation
+
+    def take(p, i):
+        return torch.gather(p, 1, i.long()[..., None].expand(i.shape + (2,)))
+
+    p1n, t1 = epipolar.normalize_points(p1, mask1)
+    p2n, t2 = epipolar.normalize_points(p2, mask2)
+    one = torch.ones_like(idx1, dtype=p1.dtype)[..., None]
+    rows = epipolar._design_rows(torch.cat([take(p1n, idx1), one], -1),
+                                 torch.cat([take(p2n, idx2), one], -1), valid).double()
+    f = epipolar._null_vector(rows.transpose(1, 2) @ rows).float().reshape(-1, 3, 3)
+    u, sv, vt = torch.linalg.svd(f)
+    sv = torch.cat([sv[:, :2], torch.zeros_like(sv[:, 2:])], 1)
+    e = k.T @ (t1.transpose(1, 2) @ ((u * sv[:, None, :]) @ vt) @ t2) @ k
+    u, _, vt = torch.linalg.svd(e)
+    w = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], device=e.device)
+    r1 = vt.transpose(1, 2) @ w @ u.transpose(1, 2)
+    sign = torch.where(torch.linalg.det(r1) < 0.0, -1.0, 1.0)[:, None, None]
+    r1, r2 = sign * r1, sign * (vt.transpose(1, 2) @ w.T @ u.transpose(1, 2))
+    m1, m2 = r1 @ e, r2 @ e
+    ta = torch.stack([m1[:, 2, 1], m1[:, 0, 2], m1[:, 1, 0]], -1)
+    tb = torch.stack([m2[:, 2, 1], m2[:, 0, 2], m2[:, 1, 0]], -1)
+    cands = se3.pose_from_rt(torch.stack([r1, r1, r2, r2], 1), torch.stack([ta, -ta, tb, -tb], 1))
+    _, ok = triangulation.triangulate_pairs_elementwise(
+        k, cands, take(p1, idx1)[:, None], take(p2, idx2)[:, None], valid[:, None])
+    votes = ok.sum(-1)
+    best = torch.argmax(votes, 1)
+    x = cands[torch.arange(cands.shape[0], device=e.device), best]
+    won = votes.gather(1, best[:, None])[:, 0] > 0
+    return torch.where(won[:, None, None], x, torch.eye(4, device=e.device))
+
+
+def blocks_equal(fn, args, full, sizes=(1, 16, 32)) -> dict:
+    """For each block size, whether ``fn`` on row blocks of ``args`` (every
+    tensor with the batch first cut alike, inside tuples too) gives
+    ``full``'s bits: a tensor or a tuple tree of tensors, the batch first."""
+    import torch
+
+    def flat(t):
+        return [t] if isinstance(t, torch.Tensor) else [y for x in t for y in flat(x)]
+
+    want = flat(full)
+    b = want[0].shape[0]
+
+    def cut(a, i, size):
+        if isinstance(a, torch.Tensor):
+            return a[i:i + size] if a.dim() and a.shape[0] == b else a
+        if isinstance(a, tuple):
+            items = [cut(x, i, size) for x in a]
+            return type(a)(*items) if hasattr(a, "_fields") else tuple(items)
+        return a
+
+    out = {}
+    for size in sizes:
+        parts = [flat(fn(*cut(tuple(args), i, size))) for i in range(0, b, size)]
+        out[str(size)] = same_bits(*((torch.cat([p[j] for p in parts]), w)
+                                     for j, w in enumerate(want)))
+    return out
+
+
+def compare_eight_point(camera, config, serving_seqs, serving_config, seq_b, plan, device, table,
+                        reps: int = 10, launch_reps: int = 50):
+    """P1 (eight_point) against its plain version, bit for bit, at the main
+    path's shapes: path E's 64 pairs (S = 128), path B's pair (S = 1,024) and
+    path H's 4 chunk pairs; two launches with the same bits. Batch
+    invariance on the card at B = 1, 16, 32 and 64 for P1, for
+    ``pipeline.initialize_batched`` (every state tensor) and for the batched
+    fold (``landmark_map.merge_stream`` over path E's kind of streams). The
+    stacked torch.linalg form of the step (linalg_eight_point) timed beside
+    it as the row's library time, with whether it is batch-invariant
+    (reported, not required). Each row: ms, the launch alone, plain ms, the
+    bound and the launch floor."""
+    import torch
+
+    from visual_odometry_tpu_torch.models import landmark_map, pipeline
+    from visual_odometry_tpu_torch.ops.kernels import epipolar_kernel
+    from visual_odometry_tpu_torch.parallel import posegraph
+    from visual_odometry_tpu_torch.utils import roofline
+    from visual_odometry_tpu_torch.utils.roofline import launch_floor, launch_times
+
+    cuda, plain = (epipolar_kernel.estimate_transform_batched_cuda,
+                   epipolar_kernel.estimate_transform_batched_plain)
+    floor = launch_floor(device, launch_reps)
+    chunks = [posegraph._chunk(x, *plan) for x in seq_b]
+    cases = {"path_e": (serving_config, serving_seqs),
+             "path_b": (config, tuple(x[None, :2] for x in seq_b)),
+             "path_h": (config, tuple(chunks))}
+    row = dict(max_abs_err=0.0, bitwise=True)
+    for label, (cfg, seqs) in cases.items():
+        args, (f0, f1, corr) = eight_point_args(camera, cfg, *seqs)
+        out = cuda(*args)
+        again = cuda(*args)
+        ref = plain(*args)
+        require(bool(torch.isfinite(out).all()), f"P1 {label}: non-finite pose")
+        require(same_bits((out, again)), f"P1 {label}: two launches gave different bits")
+        require(same_bits((out, ref)), f"P1 {label}: differs from the plain version by "
+                f"{float((out - ref).abs().max())}")
+        alone = launch_times(lambda: cuda(*args), device, launch_reps)
+        b, s = args[1].shape
+        live = int(args[3].sum())
+        lib_out = linalg_eight_point(*args)
+        sub = dict(
+            pairs=b, correspondences=s, slots=int(args[4].shape[1]), live_correspondences=live,
+            ms=time_ms(lambda: epipolar_kernel.estimate_transform_batched(*args), device, reps),
+            launch_ms=alone["ms"], device_ms=alone["device_ms"], host_ms=alone["host_ms"],
+            plain_ms=time_ms(lambda: plain(*args), device, 3),
+            library_ms=time_ms(lambda: linalg_eight_point(*args), device, reps),
+            library_max_abs_diff=float((lib_out - out).abs().max()),
+            **roofline_bound(roofline.eight_point_model(b, s, int(args[4].shape[1]), live),
+                             device), launch_floor=floor)
+        if label == "path_e":
+            inv = blocks_equal(cuda, args, out)
+            require(all(inv.values()), f"P1: not batch-invariant on the card: {inv}")
+            sub["batch_invariant"] = inv
+            sub["library_batch_invariant"] = blocks_equal(linalg_eight_point, args, lib_out)
+            # The whole batched initialize, every state tensor, by blocks.
+            state = pipeline.initialize_batched(camera, cfg, f0, f1, corr=corr)
+            init = blocks_equal(lambda u, v, c: pipeline.initialize_batched(
+                camera, cfg, u, v, corr=c), (f0, f1, corr), state)
+            require(all(init.values()), f"initialize_batched: not batch-invariant: {init}")
+            sub["initialize_batch_invariant"] = init
+            streams = fold_streams(b, cfg, device)
+            folded = landmark_map.merge_stream(*streams, cfg.map_capacity)
+            fold = blocks_equal(lambda *a: landmark_map.merge_stream(*a, cfg.map_capacity),
+                                streams, tuple(folded))
+            require(all(fold.values()), f"merge_stream: not batch-invariant: {fold}")
+            sub["fold_batch_invariant"] = fold
+        row[label] = sub
+    row.update({k: row["path_e"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                              "bound_by")})
+    table["eight_point"] = row
+
+
+def fold_streams(b: int, config, device, frames: int = SERVE_FRAMES, seed: int = 0):
+    """``b`` streams of path E's fold (n_slots bootstrap rows and n_slots rows
+    a tracked frame), each re-observing a field of 160 landmark keys, one in
+    five rows masked: (points, appearances, mask) on the card."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = config.n_slots * (frames - 1)
+    table = rng.uniform(-1, 1, (b, 160, 10)).astype(np.float32)
+    keys = rng.integers(0, 160, (b, t))
+    apps = np.take_along_axis(table, keys[..., None], axis=1)
+    pts = rng.normal(size=(b, t, 3)).astype(np.float32)
+    mask = rng.uniform(size=(b, t)) > 0.2
+    return tuple(torch.from_numpy(x).to(device) for x in (pts, apps, mask))
+
+
 def serving_inputs(count: int, frames: int, slots: int, config, device):
     """``count`` stacked sequences (points, appearances, masks) of path E's
     kind, landmark fields 100 .. 100 + count - 1, none left out:
@@ -895,6 +1081,7 @@ def run_path_h(camera, config, pts, apps, masks, device, serial_traj, serial_fps
     translation ratio within 5% of their median."""
     import torch
 
+    from visual_odometry_tpu_torch.models import landmark_map
     from visual_odometry_tpu_torch.models.refinement import absolute_from_relative
     from visual_odometry_tpu_torch.ops.kernels import _lib
     from visual_odometry_tpu_torch.parallel import posegraph
@@ -906,8 +1093,10 @@ def run_path_h(camera, config, pts, apps, masks, device, serial_traj, serial_fps
 
     plan = starts, length = chunk_plan(camera, config, pts, apps, masks)
     _lib.reset_launches()
-    traj, map_state, diags = chunked()
+    with recording(landmark_map, "merge_stream") as folds:
+        traj, map_state, diags = chunked()
     sync(device)
+    require(len(folds) == 1, f"path H: {len(folds)} merge_stream calls, expected one")
     launches = read_launches(tuple(k for k, v in PATH_H.items() if v), "path H", require_launches)
     if require_launches:
         require(all(launches[k] == v for k, v in PATH_H.items()),
@@ -1727,7 +1916,7 @@ def run_path_e(camera, serving, device, require_launches: bool = True, reps: int
     planar False/True to (config, the batch of ``serving_inputs``)."""
     import torch
 
-    from visual_odometry_tpu_torch.models import pipeline
+    from visual_odometry_tpu_torch.models import landmark_map, pipeline
     from visual_odometry_tpu_torch.ops import se3
     from visual_odometry_tpu_torch.ops.kernels import _lib
     from visual_odometry_tpu_torch.parallel import multiseq
@@ -1742,15 +1931,18 @@ def run_path_e(camera, serving, device, require_launches: bool = True, reps: int
         k8 = "track_frames_batched_planar" if planar else "track_frames_batched"
         label = "path E planar" if planar else "path E"
         _lib.reset_launches()
-        traj, maps, outs = multiseq.run_sequences_batched(camera, config, *seqs)
+        with recording(landmark_map, "merge_stream") as folds:
+            traj, maps, outs = multiseq.run_sequences_batched(camera, config, *seqs)
         sync(device)
-        ran = read_launches(("match_pairs", "join_candidates", "gather_rows", k8), label,
-                            require_launches)
+        ran = read_launches(("match_pairs", "join_candidates", "gather_rows", k8, "eight_point"),
+                            label, require_launches)
+        require(len(folds) == 1, f"{label}: {len(folds)} merge_stream calls, expected one")
         if require_launches:
             want = {"match_pairs": 2, "join_candidates": 1, "gather_rows": K3_PATH_LAUNCHES,
-                    k8: 1, "track_frames": 0, "track_frames_planar": 0}
+                    k8: 1, "track_frames": 0, "track_frames_planar": 0, "eight_point": 1}
             require(all(ran[k] == v for k, v in want.items()),
-                    f"{label}: K1-K3 must launch once a stage over the batch and K8 once: {ran}")
+                    f"{label}: K1-K3 and P1 must launch once a stage over the batch and K8 "
+                    f"once: {ran}")
         for k, v in ran.items():
             launches[k] += v
         require_tracked(outs, traj, n_slots, label)
@@ -2017,7 +2209,7 @@ def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1
 
     own = ("match_pairs", "join_candidates", "gather_rows", "track_frames", "picp_solve",
            "best_match_scan", "best_match_tc", "best_match_fold", "segment_sum", "take_table",
-           "picp_linearize")   # csrc/*.cu name their kernels <this>_kernel
+           "picp_linearize", "eight_point")   # csrc/*.cu name their kernels <this>_kernel
 
     def measured(fn):
         with profiling.stage_times() as timer:
@@ -2801,8 +2993,10 @@ def main() -> int:
         seqs = serving_inputs(SERVE_B, SERVE_FRAMES, SERVE_SLOTS, cfg, device)
         compare_serving(camera, cfg, seqs, device, table)
         serving[cfg.planar] = (cfg, seqs)
-    compare_chunked_k8(camera, config, (pts, apps, masks),
-                       chunk_plan(camera, config, pts, apps, masks), device, table)
+    plan = chunk_plan(camera, config, pts, apps, masks)
+    compare_chunked_k8(camera, config, (pts, apps, masks), plan, device, table)
+    compare_eight_point(camera, config, serving[False][1], serving[False][0], (pts, apps, masks),
+                        plan, device, table)
     ba_problem = corridor(device)
     compare_sparse_ba_kernels(ba_problem[1], device, table)
     compare_wide_sparse_ba(device, table)

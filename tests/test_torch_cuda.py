@@ -31,8 +31,9 @@ from visual_odometry_tpu_torch.models import pipeline
 from visual_odometry_tpu_torch.ops.kernels import _lib
 from visual_odometry_tpu_torch.ops import se3
 from visual_odometry_tpu_torch.ops.camera import project_points
+from visual_odometry_tpu_torch.models import landmark_map
 from visual_odometry_tpu_torch.ops.kernels import (
-    frame_kernel, gather_kernel, matcher_kernel, picp_kernel, segsum_kernel,
+    epipolar_kernel, frame_kernel, gather_kernel, matcher_kernel, picp_kernel, segsum_kernel,
 )
 from visual_odometry_tpu_torch.parallel import multiseq, posegraph, sparse_ba
 from visual_odometry_tpu_torch.utils import roofline, selfcheck, synthetic
@@ -610,19 +611,43 @@ def test_best_match_fast_other_widths(dev, d):
     assert torch.equal(idx, idx_p) and torch.equal(dist, dist_p)
 
 
-def test_planar_run_sequence_and_relocalize_cuda(dev):
-    """The planar fused path and map-scale relocalization launch K5, K7 and K6
-    and agree with their plain versions."""
-    pts, apps, masks = (torch.from_numpy(x).to(dev) for x in
-                        synthetic.generate_tracking_sequence(np.random.default_rng(1), 24, 128))
+def _first_nonfinite(traj):
+    """The first frame whose pose has a non-finite entry, or None."""
+    bad = torch.nonzero(~torch.isfinite(traj).flatten(1).all(1))
+    return int(bad[0, 0]) if bad.numel() else None
+
+
+@pytest.mark.parametrize("motion", ["six_dof", "planar_robot"])
+def test_planar_run_sequence_and_relocalize_cuda(dev, motion):
+    """The planar fused path launches K5 and agrees with its plain version;
+    on a planar robot's motion map-scale relocalization launches K7 and K6
+    and agrees with their plain versions too. On 6-DoF motion, outside the
+    subgroup the planar model moves in, the monocular scale collapses and
+    the poses may turn non-finite at a frame set by the bootstrap's last
+    bits, as in the JAX package from the same bootstrap pose
+    (test_torch_planar.py::test_planar_model_on_6dof_motion_collapses_in_both_packages):
+    K5 and its plain version agree frame by frame up to their first
+    non-finite frame, and it is the same frame."""
+    if motion == "six_dof":
+        pts, apps, masks = (torch.from_numpy(x).to(dev) for x in synthetic.generate_tracking_sequence(
+            np.random.default_rng(1), 24, 128))
+        mount = _mount(dev).cpu()
+    else:
+        pts, apps, masks = (x.to(dev) for x in _planar_robot_sequence(1, 24, 128))
+        mount = se3.v2t_euler(torch.tensor(SERVING_MOUNT))
     camera = synthetic.deep_camera(device=dev)
-    cfg = VOConfig(n_slots=128, map_capacity=256).with_planar_mount(_mount(dev).cpu().numpy())
+    cfg = VOConfig(n_slots=128, map_capacity=256).with_planar_mount(mount.numpy())
     _lib.reset_launches()
     traj, m, _ = pipeline.run_sequence(camera, cfg, pts, apps, masks)
     assert _lib.launches["track_frames_planar"] == 1 and _lib.launches["track_frames"] == 0
     plain = cfg.replace(matcher_backend="torch", scan_backend="torch", solver_backend="torch")
     traj_p, m_p, _ = pipeline.run_sequence(camera, plain, pts, apps, masks)
-    assert float((traj - traj_p).abs().max()) <= 2e-3
+    first = _first_nonfinite(traj)
+    assert first == _first_nonfinite(traj_p)
+    assert float((traj[:first] - traj_p[:first]).abs().max()) <= 2e-3
+    if motion == "six_dof":
+        return
+    assert first is None
     ids = torch.full_like(masks[0], -1, dtype=torch.int32)
     frame = pipeline.FrameData(pts[10], apps[10], masks[10], ids)
     eye = torch.eye(4, device=dev)
@@ -748,8 +773,9 @@ def test_track_frames_batched_dead_sequence(dev):
 
 
 def test_run_sequences_batched_cuda_equals_run_sequence(dev):
-    """The batch-aware program on the card: K1-K3 once a stage, K8 once, each
-    sequence equal to its own run_sequence."""
+    """The batch-aware program on the card: K1-K3 once a stage, K8 once, P1
+    once for the batch's bootstraps, each sequence equal to its own
+    run_sequence."""
     seqs = [synthetic.generate_tracking_sequence(np.random.default_rng(7 + i), 12, 64)
             for i in range(4)]
     tensors = tuple(torch.from_numpy(np.stack([q[k] for q in seqs])).to(dev) for k in range(3))
@@ -758,7 +784,8 @@ def test_run_sequences_batched_cuda_equals_run_sequence(dev):
     _lib.reset_launches()
     traj, maps, outs = multiseq.run_sequences_batched(camera, cfg, *tensors)
     assert (_lib.launches["match_pairs"], _lib.launches["join_candidates"],
-            _lib.launches["gather_rows"], _lib.launches["track_frames_batched"]) == (2, 1, 3, 1)
+            _lib.launches["gather_rows"], _lib.launches["track_frames_batched"],
+            _lib.launches["eight_point"]) == (2, 1, 3, 1, 1)
     for i in range(4):
         t_i, m_i, o_i = pipeline.run_sequence(camera, cfg, *(x[i] for x in tensors))
         assert torch.equal(traj[i], t_i)
@@ -771,8 +798,8 @@ def test_run_sequences_batched_cuda_equals_run_sequence(dev):
 def test_run_sequence_chunked_cuda_equals_loop_form(dev):
     """Chunked tracking on the card: the chunks as one batched program (K1
     for the bootstrap scores, the chunks' bootstrap pairs and their flattened
-    pairs, one K2, three K3, one K8 and no K4) equal to the loop form (K4
-    once a chunk) bit for bit: trajectory, map and diagnostics."""
+    pairs, one K2, three K3, one K8, one P1 and no K4) equal to the loop form
+    (K4 and P1 once a chunk) bit for bit: trajectory, map and diagnostics."""
     seq = synthetic.generate_tracking_sequence(np.random.default_rng(0), 64, 128)
     pts, apps, masks = (torch.from_numpy(x).to(dev) for x in seq)
     camera = synthetic.deep_camera(device=dev)
@@ -780,7 +807,7 @@ def test_run_sequence_chunked_cuda_equals_loop_form(dev):
     _lib.reset_launches()
     got = posegraph.run_sequence_chunked(camera, cfg, pts, apps, masks, num_chunks=3, overlap=8)
     want = {"match_pairs": 3, "join_candidates": 1, "gather_rows": 3, "track_frames_batched": 1,
-            "track_frames": 0}
+            "track_frames": 0, "eight_point": 1}
     assert {k: _lib.launches[k] for k in want} == want
     _lib.reset_launches()
     ids = torch.full(masks.shape, -1, dtype=torch.int32, device=dev)
@@ -789,6 +816,7 @@ def test_run_sequence_chunked_cuda_equals_loop_form(dev):
     loop = posegraph._track_and_stitch(camera, cfg, *chunked, starts, length, pts.shape[0],
                                        False, batched=False)
     assert _lib.launches["track_frames"] == 3 and _lib.launches["track_frames_batched"] == 0
+    assert _lib.launches["eight_point"] == 3
     assert bool((got[2].num_ratio_obs >= 8).all())
     for a, b in zip((got[0], *got[1], *got[2]), (loop[0], *loop[1], *loop[2])):
         assert torch.equal(a, b)
@@ -1265,3 +1293,106 @@ def test_tracking_step_on_the_card_matches_the_cpu(dev):
     _, inliers = _step_on_the_card_and_the_cpu(graft_entry.step_fn(camera, cfg),
                                                graft_entry.step_fn(cam_c, cfg_c), state, frame)
     assert inliers == cfg.n_slots
+
+
+def _eight_point_batch(dev, count, frames, slots, seed=0):
+    """P1's arguments for the bootstrap pairs of ``count`` sequences of
+    ``generate_tracking_sequence`` (K1 matches them), and the frames and
+    correspondences ``initialize_batched`` takes."""
+    seqs = [synthetic.generate_tracking_sequence(np.random.default_rng(seed + i), frames, slots)
+            for i in range(count)]
+    pts, apps, masks = (torch.from_numpy(np.stack([q[k] for q in seqs])).to(dev)
+                        for k in range(3))
+    ids = torch.full(masks.shape, -1, dtype=torch.int32, device=dev)
+    f0, f1 = (pipeline.FrameData(*(x[:, i].contiguous() for x in (pts, apps, masks, ids)))
+              for i in (0, 1))
+    cfg = VOConfig(n_slots=slots, map_capacity=2 * slots)
+    corr = pipeline._batched_match(cfg, False, f1, f0)
+    camera = synthetic.deep_camera(device=dev)
+    args = (camera.camera_matrix.contiguous(), corr.idx1.contiguous(), corr.idx2.contiguous(),
+            corr.valid.contiguous(), f0.points, f1.points, f0.mask, f1.mask)
+    return args, (camera, cfg, f0, f1, corr)
+
+
+def _p1_degenerate(args):
+    """Row 0 dead (every mask false), row 1 a NaN in a valid slot, row 2 one
+    correspondence on every valid slot, row 3 fewer than 8 correspondences."""
+    k, i1, i2, v, p1, p2, m1, m2 = (x.clone() for x in args)
+    m1[0], m2[0], v[0] = False, False, False
+    live = torch.nonzero(v[1])[:, 0]
+    p1[1, i1[1, live[0]]] = float("nan")
+    i1[2] = i1[2, torch.nonzero(v[2])[0, 0]]
+    i2[2] = i2[2, torch.nonzero(v[2])[0, 0]]
+    v[3, torch.nonzero(v[3])[5:, 0]] = False
+    return k, i1, i2, v, p1, p2, m1, m2
+
+
+@pytest.mark.parametrize("count,slots,degenerate", [(64, 128, False), (1, 1024, False),
+                                                    (4, 1024, False), (8, 128, True)])
+def test_eight_point_kernel_equals_plain(dev, count, slots, degenerate):
+    """P1 bit for bit against its plain version at path E's, B's and H's
+    shapes and on degenerate pairs (dead: the identity, a NaN in a valid
+    slot: the identity, one repeated correspondence, fewer than 8); one
+    launch a call, two launches with the same bits."""
+    args, _ = _eight_point_batch(dev, count, 2, slots)
+    if degenerate:
+        args = _p1_degenerate(args)
+    _lib.reset_launches()
+    got = epipolar_kernel.estimate_transform_batched(*args)
+    assert _lib.launches["eight_point"] == 1
+    again = epipolar_kernel.estimate_transform_batched(*args)
+    ref = epipolar_kernel.estimate_transform_batched_plain(*args)
+    assert torch.equal(_bits(got), _bits(ref))
+    assert torch.equal(_bits(got), _bits(again))
+    assert bool(torch.isfinite(got).all())
+    if degenerate:
+        eye = torch.eye(4, device=dev)
+        assert torch.equal(got[0], eye) and torch.equal(got[1], eye)
+
+
+def test_eight_point_batch_invariance(dev):
+    """A pair's P1 pose has the same bits alone, in blocks of 16 and 32 and in
+    the batch of 64."""
+    args, _ = _eight_point_batch(dev, 64, 2, 128, seed=100)
+    full = epipolar_kernel.estimate_transform_batched(*args)
+    for size in (1, 16, 32):
+        parts = [epipolar_kernel.estimate_transform_batched(
+            args[0], *(a[i:i + size] for a in args[1:])) for i in range(0, 64, size)]
+        assert torch.equal(_bits(torch.cat(parts)), _bits(full)), size
+
+
+def test_initialize_batched_and_fold_batch_invariant(dev):
+    """``initialize_batched`` (every state tensor) and the batched
+    ``merge_stream`` give each sequence the same bits alone, in blocks of 16
+    and 32 and in the batch of 64; ``initialize`` of one pair equals its row."""
+    _, (camera, cfg, f0, f1, corr) = _eight_point_batch(dev, 64, 2, 128, seed=100)
+    state, x_init = pipeline.initialize_batched(camera, cfg, f0, f1, corr=corr)
+
+    def flat(t):
+        return [t] if isinstance(t, torch.Tensor) else [y for x in t for y in flat(x)]
+
+    want = flat((state, x_init))
+    for size in (1, 16, 32):
+        parts = []
+        for i in range(0, 64, size):
+            cut = [type(t)(*(x[i:i + size] for x in t)) for t in (f0, f1, corr)]
+            parts.append(flat(pipeline.initialize_batched(camera, cfg, *cut[:2], corr=cut[2])))
+        for j, w in enumerate(want):
+            assert torch.equal(torch.cat([p[j] for p in parts]), w), (size, j)
+    alone, x0 = pipeline.initialize(camera, cfg, *(type(t)(*(x[5] for x in t)) for t in (f0, f1)),
+                                    corr=type(corr)(*(x[5] for x in corr)))
+    assert torch.equal(x0, x_init[5])
+    assert all(torch.equal(a, b[5]) for a, b in zip(flat(alone), flat(state)))
+
+    rng = np.random.default_rng(3)
+    table = rng.uniform(-1, 1, (64, 160, 10)).astype(np.float32)
+    apps = np.take_along_axis(table, rng.integers(0, 160, (64, 4000))[..., None], axis=1)
+    streams = [torch.from_numpy(x).to(dev) for x in (
+        rng.normal(size=(64, 4000, 3)).astype(np.float32), apps,
+        rng.uniform(size=(64, 4000)) > 0.2)]
+    folded = landmark_map.merge_stream(*streams, 128)
+    for size in (1, 16, 32):
+        parts = [landmark_map.merge_stream(*(x[i:i + size] for x in streams), 128)
+                 for i in range(0, 64, size)]
+        for j, w in enumerate(folded):
+            assert torch.equal(torch.cat([p[j] for p in parts]), w), (size, j)

@@ -47,6 +47,7 @@ MODELS = [
     (roofline.segment_sum_model, dict(n=600_000, t=512, r=36), "n"),
     (roofline.take_table_model, dict(n=600_000, t=512, r=12), "n"),
     (roofline.sparse_ba_model, dict(n=592_677, f=512, l=100_000, cg_iters=64), "cg_iters"),
+    (roofline.eight_point_model, dict(b=64, s=128, n=128), "b"),
 ]
 
 
@@ -61,6 +62,21 @@ def test_models_scale_linearly(model, kw, axis):
     chip = roofline.spec_for(SXM)
     t = [x.speed_of_light_s(chip) for x in at]
     assert t[0] < t[1] < t[2]
+
+
+def test_fp64_rate_and_the_eight_point_model():
+    """The FP64 CUDA-core rate is SMs x 64 x the clock (34 TFLOP/s on the
+    SXM5, a multiply-add two); P1's work is all float64, its live count the
+    data's, and an FP64-only model binds by operations once bytes are few."""
+    sxm = roofline.spec_for(SXM)
+    assert sxm.fp64_ops == 132 * 64 * 1.98e9
+    assert abs(2 * sxm.fp64_ops / 1e12 - 34) < 0.6   # 33.45, the data sheet rounds to 34
+    full, half = roofline.eight_point_model(1, 1024, 1024), roofline.eight_point_model(
+        1, 1024, 1024, live=512)
+    assert full.fp32_ops == 0.0 and full.tc_flops == 0.0
+    assert full.fp64_ops - half.fp64_ops == (45 + roofline.EIGHT_POINT_ROW_OPS) * 512
+    t, by = roofline.KernelModel("x", 0.0, 0.0, 0.0, fp64_ops=1e9).bound(sxm)
+    assert by == "operations" and t == pytest.approx(1e9 / sxm.fp64_ops)
 
 
 def test_op_counts_grow_with_gn_rounds():

@@ -38,31 +38,43 @@ class LandmarkMap(NamedTuple):
 
 def update(map_state: LandmarkMap, points, appearances, mask) -> LandmarkMap:
     """Merge a cloud (N, 3) / (N, D) / (N,) into the map; entries past the
-    remaining capacity are dropped."""
-    cap = map_state.points.shape[0]
-    eq = torch.all(appearances[:, None, :] == map_state.appearances[None, :, :], dim=-1)
-    eq = eq & map_state.valid[None, :] & mask[:, None]
-    found = eq.any(dim=1)
-    match_idx = eq.to(torch.int8).argmax(dim=1)   # first match
+    remaining capacity are dropped. With a leading batch axis on the map and
+    the cloud, each map takes its own cloud (comparisons, integer counts and
+    copies only: a map's result does not depend on the batch)."""
+    if mask.dim() == 1:
+        out = _update(LandmarkMap(*(x[None] for x in map_state)), points[None],
+                      appearances[None], mask[None])
+        return LandmarkMap(*(x[0] for x in out))
+    return _update(map_state, points, appearances, mask)
+
+
+def _update(map_state: LandmarkMap, points, appearances, mask) -> LandmarkMap:
+    """:func:`update` of (B, ...) maps and clouds."""
+    b, cap = map_state.valid.shape
+    eq = torch.all(appearances[:, :, None, :] == map_state.appearances[:, None, :, :], dim=-1)
+    eq = eq & map_state.valid[:, None, :] & mask[:, :, None]
+    found = eq.any(dim=2)
+    match_idx = eq.to(torch.int8).argmax(dim=2)   # first match
+    rows = torch.arange(b, device=mask.device)[:, None].expand_as(mask)
 
     new_points = map_state.points.clone()
-    new_points[match_idx[found]] = points[found]
+    new_points[rows[found], match_idx[found]] = points[found]
 
     append = mask & ~found
-    offsets = torch.cumsum(append.to(torch.int32), 0) - 1
-    pos = map_state.count + offsets
+    offsets = torch.cumsum(append.to(torch.int32), 1) - 1
+    pos = map_state.count[:, None] + offsets
     keep = append & (pos < cap)
-    slots = pos[keep].long()
-    new_points[slots] = points[keep]
+    at = (rows[keep], pos[keep].long())
+    new_points[at] = points[keep]
     new_apps = map_state.appearances.clone()
-    new_apps[slots] = appearances[keep]
+    new_apps[at] = appearances[keep]
     new_valid = map_state.valid.clone()
-    new_valid[slots] = True
+    new_valid[at] = True
     return LandmarkMap(
         points=new_points,
         appearances=new_apps,
         valid=new_valid,
-        count=map_state.count + keep.sum().to(torch.int32),
+        count=map_state.count + keep.sum(dim=1).to(torch.int32),
     )
 
 
@@ -87,28 +99,51 @@ def merge_stream(points, appearances, mask, capacity: int) -> LandmarkMap:
     groups enter the map in FIRST-observation order, truncated at
     ``capacity``. The JAX package's two payload-carrying sorts become
     ``torch.unique`` over the keys and two ``scatter_reduce`` passes over time.
+
+    With a leading sequence axis ((B, T, 3), (B, T, D), (B, T)) every
+    sequence folds its own stream into its own map, in the same one pass: the
+    sequence index is the first key column, so groups never span sequences,
+    and each sequence keeps its own first-observation order and capacity
+    (the counterpart of ``jax.vmap`` over the JAX fold). Integer keys and
+    copied rows only: a sequence's map has the bits its own fold gives.
     """
-    t, d = appearances.shape
+    if mask.dim() == 1:
+        out = _merge_streams(points[None], appearances[None], mask[None], capacity)
+        return LandmarkMap(*(x[0] for x in out))
+    return _merge_streams(points, appearances, mask, capacity)
+
+
+def _merge_streams(points, appearances, mask, capacity: int) -> LandmarkMap:
+    """:func:`merge_stream` of (B, T, ...) streams."""
+    b, t, d = appearances.shape
     dev = points.device
-    apps_c = appearances + 0.0                          # -0.0 -> +0.0
-    rows = torch.nonzero(mask).squeeze(1)               # live rows, time order
-    keys = apps_c[rows].contiguous().view(torch.int32)
-    out_pts = torch.zeros((capacity, 3), dtype=points.dtype, device=dev)
-    out_apps = torch.full((capacity, d), float("inf"), dtype=appearances.dtype, device=dev)
-    out_valid = torch.zeros((capacity,), dtype=torch.bool, device=dev)
+    apps_c = (appearances + 0.0).reshape(b * t, d)      # -0.0 -> +0.0
+    flat_pts = points.reshape(b * t, 3)
+    rows = torch.nonzero(mask.reshape(-1)).squeeze(1)   # live rows, sequence then time order
+    out_pts = torch.zeros((b, capacity, 3), dtype=points.dtype, device=dev)
+    out_apps = torch.full((b, capacity, d), float("inf"), dtype=appearances.dtype, device=dev)
+    out_valid = torch.zeros((b, capacity), dtype=torch.bool, device=dev)
     if rows.numel() == 0:
-        return LandmarkMap(out_pts, out_apps, out_valid, torch.zeros((), dtype=torch.int32,
-                                                                     device=dev))
+        return LandmarkMap(out_pts, out_apps, out_valid,
+                           torch.zeros((b,), dtype=torch.int32, device=dev))
+    keys = apps_c[rows].contiguous().view(torch.int32)
+    if b > 1:   # one stream needs no sequence column: its groups are the same
+        keys = torch.cat([(rows // t).to(torch.int32)[:, None], keys], dim=1)
     uniq, group = torch.unique(keys, dim=0, return_inverse=True)
     g = uniq.shape[0]
-    first = torch.full((g,), t, dtype=torch.int64, device=dev).scatter_reduce(
+    first = torch.full((g,), b * t, dtype=torch.int64, device=dev).scatter_reduce(
         0, group, rows, reduce="amin")
     last = torch.full((g,), -1, dtype=torch.int64, device=dev).scatter_reduce(
         0, group, rows, reduce="amax")
-    order = torch.argsort(first)[:capacity]             # first times are distinct
-    n = order.shape[0]
-    out_pts[:n] = points[last[order]]
-    out_apps[:n] = apps_c[first[order]]
-    out_valid[:n] = True
+    order = torch.argsort(first)                       # first rows are distinct
+    first, last = first[order], last[order]
+    owner = first // t
+    counts = torch.bincount(owner, minlength=b)
+    rank = torch.arange(g, device=dev) - (torch.cumsum(counts, 0) - counts)[owner]
+    keep = rank < capacity
+    at = (owner[keep], rank[keep])
+    out_pts[at] = flat_pts[last[keep]]
+    out_apps[at] = apps_c[first[keep]]
+    out_valid[at] = True
     return LandmarkMap(out_pts, out_apps, out_valid,
-                       torch.tensor(n, dtype=torch.int32, device=dev))
+                       counts.clamp(max=capacity).to(torch.int32))

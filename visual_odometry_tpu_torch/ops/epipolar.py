@@ -6,6 +6,11 @@ iteration, rank-2 projection), E = K^T F K, the two SVD rotation candidates
 with both translation signs, and the cheirality vote
 (epipolar_utils.cpp:103-213). Eigenvector and singular-vector signs may
 differ from JAX's; the candidate set and hence the chosen pose do not.
+``estimate_transform`` is the batch of one of the eight-point kernel P1
+(``ops/kernels/epipolar_kernel``), which writes each of these steps out in a
+fixed order. ``estimate_fundamental`` and ``essential_to_transform_pair``,
+the JAX names' counterparts, keep the library form (``torch.linalg``); the
+pipeline does not call them.
 
 The normal matrix of the 8-point system and its null vector are taken in
 float64, unlike the JAX package's (a TPU has no float64). At a baseline of a
@@ -22,7 +27,8 @@ from typing import Tuple
 
 import torch
 
-from . import se3, triangulation
+from . import se3
+from .kernels import epipolar_kernel
 
 
 def transform_to_essential(x_1_in_2: torch.Tensor) -> torch.Tensor:
@@ -209,19 +215,11 @@ def homography_transfer_residuals(idx1, idx2, corr_valid, p1_img, p2_img, mask1,
 
 def estimate_transform(camera_matrix, idx1, idx2, corr_valid, p1_img, p2_img, mask1, mask2):
     """F -> E -> 4 candidates -> cheirality vote; the (4, 4) pose of camera 1
-    in camera 2's frame (identity when no candidate puts a point in front)."""
-    f = estimate_fundamental(idx1, idx2, corr_valid, p1_img, p2_img, mask1, mask2)
-    e = camera_matrix.T @ f @ camera_matrix
-    r1, t1, r2, t2 = essential_to_transform_pair(e)
-    candidates = se3.pose_from_rt(
-        torch.stack([r1, r1, r2, r2]), torch.stack([t1, -t1, t2, -t2])
-    )  # (4, 4, 4), the reference's test order X1, X1(-t), X2, X2(-t)
-    p1, p2 = p1_img[idx1.long()], p2_img[idx2.long()]
-    votes = torch.stack([
-        triangulation.triangulate_pairs(camera_matrix, x, p1, p2, corr_valid)[1].sum()
-        for x in candidates
-    ])                              # (4,)
-    best = torch.argmax(votes)      # first max == the reference's strict > scan
-    x_best = candidates[best]
-    eye = torch.eye(4, dtype=x_best.dtype, device=x_best.device)
-    return torch.where(votes[best] > 0, x_best, eye)
+    in camera 2's frame (identity when no candidate puts a point in front).
+    The batch of one of kernel P1 (``ops/kernels/epipolar_kernel``), which
+    takes the normal matrix's null vector by Jacobi and its own LU in
+    float64 and the 3x3 SVDs by one-sided Jacobi: within 1e-6 of this
+    module's ``eigh``/``solve_ex``/``svd`` form on the pipeline's scenes."""
+    return epipolar_kernel.estimate_transform_batched(
+        camera_matrix, idx1[None], idx2[None], corr_valid[None], p1_img[None], p2_img[None],
+        mask1[None], mask2[None])[0]

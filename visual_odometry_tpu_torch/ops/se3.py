@@ -74,6 +74,44 @@ def inverse(pose: torch.Tensor) -> torch.Tensor:
     return pose_from_rt(r_t, t)
 
 
+def matmul_elementwise(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` over the last two axes, each entry ``((a_i0 b_0j + a_i1 b_1j)
+    + ...)`` summed in index order by elementwise ops. Its bits do not depend
+    on the batch around a matrix, as a batched matmul's may (on the card the
+    kernel is chosen by the batch's size)."""
+    out = a[..., :, 0, None] * b[..., None, 0, :]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., :, k, None] * b[..., None, k, :]
+    return out
+
+
+def inverse_elementwise(pose: torch.Tensor) -> torch.Tensor:
+    """:func:`inverse` with ``-R^T t`` summed per element in index order,
+    ``-((R_0i t_0 + R_1i t_1) + R_2i t_2)``: batch-invariant (see
+    :func:`matmul_elementwise`)."""
+    r, t = rot(pose), trans(pose)
+    r_t = r.transpose(-1, -2)
+    ti = r[..., 0, :] * t[..., 0, None] + r[..., 1, :] * t[..., 1, None]
+    return pose_from_rt(r_t, -(ti + r[..., 2, :] * t[..., 2, None]))
+
+
+def project_se2_elementwise(pose: torch.Tensor) -> torch.Tensor:
+    """:func:`project_se2` with the yaw's cosine and sine taken as
+    ``(x, y) / sqrt(x^2 + y^2)`` of the rotation's first column (``(1, 0)``
+    at the origin, as ``atan2(0, 0) = 0``): correctly rounded operations
+    only, so batch-invariant on every device (the CPU's vector and scalar
+    ``atan2`` round differently)."""
+    x, y = pose[..., 0, 0], pose[..., 1, 0]
+    r = torch.sqrt(x * x + y * y)
+    live = r > 0.0
+    safe = torch.where(live, r, torch.ones_like(r))
+    c = torch.where(live, x / safe, torch.ones_like(x))
+    s = torch.where(live, y / safe, torch.zeros_like(y))
+    o, z = torch.ones_like(c), torch.zeros_like(c)
+    rz = _rot(s, c, o, z, lambda s, c, o, z: [[c, -s, z], [s, c, z], [z, z, o]])
+    return pose_from_rt(rz, torch.stack([pose[..., 0, 3], pose[..., 1, 3], z], -1))
+
+
 def transform_points(pose: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Apply a ``(..., 4, 4)`` pose to points ``(..., N, 3)``."""
     return points @ rot(pose).transpose(-1, -2) + trans(pose)[..., None, :]

@@ -5,15 +5,17 @@ The frame loop of one sequence is serial, so tracking throughput scales over
 independent sequences. Two forms:
 
 * ``backend="cuda"``: the batch-aware program of the JAX package's
-  ``_run_serving``. The bootstrap runs per sequence (one pair match over the
-  batch, then ``pipeline.initialize`` on each pair); the pose-independent
+  ``_run_serving``. The bootstrap is one pair match over the batch and one
+  ``pipeline.initialize_batched`` (one launch of the eight-point kernel P1
+  for all pairs, ``ops/kernels/epipolar_kernel``); the pose-independent
   stages see the batch flattened into their frame axis — one K1 launch over
   the ``B*(F-2)`` consecutive pairs, one K2 over ``B*(F-2)`` frames, K3 once
   for each side's pixels and once for the appearances, reading the batch's
   frame slices in place — and the frame loops run as
   one K8 launch, one CTA per sequence
-  (``ops/kernels/frame_kernel.track_frames_batched``). The chain products and
-  the ``merge_stream`` fold then run per sequence. The tracking half,
+  (``ops/kernels/frame_kernel.track_frames_batched``). The chain products
+  run along the frame axis and one ``merge_stream`` call folds every
+  sequence's map (the JAX package's ``jax.vmap(fold)``). The tracking half,
   ``_track_batched``, also tracks the chunks of ``parallel/posegraph``.
 * ``backend="torch"``: the counterpart of the JAX ``vmap`` form, a loop of
   ``pipeline._run`` over the sequences under the config's own backends.
@@ -55,8 +57,8 @@ def _stack(items):
 def _track_batched(camera: Camera, config: VOConfig, points, appearances, masks, ids,
                    use_known_da: bool = False):
     """``pipeline._track`` over a batch of sequences (B, F, S, ...), every
-    stage batch-aware: the bootstrap pairs in one match, the init per
-    sequence, then K1 over the ``B*(F-2)`` flattened consecutive pairs, K2
+    stage batch-aware: the bootstrap pairs in one match and one batched
+    init (one P1 launch), then K1 over the ``B*(F-2)`` flattened consecutive pairs, K2
     over their frames, three K3 gathers and one K8 launch. Returns what
     ``pipeline._track`` returns, each with a leading batch axis: (x_init
     (B, 4, 4), FrameOutput (B, F-2, ...), InitTriangulation (B, S, ...)).
@@ -67,27 +69,16 @@ def _track_batched(camera: Camera, config: VOConfig, points, appearances, masks,
     f0 = pipeline.FrameData(*(x[:, 0] for x in frames_all))
     f1 = pipeline.FrameData(*(x[:, 1] for x in frames_all))
 
-    # Two-frame bootstrap: one pair match over the batch, then the init per sequence.
+    # Two-frame bootstrap: one pair match and one batched init (one P1 launch).
     with stage("bootstrap_match"):
         corr01 = pipeline._batched_match(config, use_known_da, f1, f0)
     with stage("bootstrap_init"):
-        states, x_inits = [], []
-        for i in range(n):
-            state, x_init = pipeline.initialize(
-                camera, config, pipeline.FrameData(*(x[i] for x in f0)),
-                pipeline.FrameData(*(x[i] for x in f1)),
-                corr=type(corr01)(*(x[i] for x in corr01)))
-            states.append(state)
-            x_inits.append(x_init)
-        x_init = torch.stack(x_inits)
-        x_curr = torch.stack([st.x_curr for st in states])
-        tri_points = torch.stack([st.tri_points for st in states])
-        tri_valid = torch.stack([st.tri_valid for st in states])
+        state, x_init = pipeline.initialize_batched(camera, config, f0, f1, corr=corr01)
+        x_curr, tri_points, tri_valid = state.x_curr, state.tri_points, state.tri_valid
         # The maps were empty: their first n_slots rows are the bootstrap observations.
         init_tri = pipeline.InitTriangulation(
-            points=torch.stack([st.map.points[:s] for st in states]),
-            apps=torch.stack([st.map.appearances[:s] for st in states]),
-            valid=torch.stack([st.map.valid[:s] for st in states]))
+            points=state.map.points[:, :s], apps=state.map.appearances[:, :s],
+            valid=state.map.valid[:, :s])
 
     def flat(x):
         return x.reshape((n * (f - 2),) + x.shape[2:])
@@ -157,24 +148,23 @@ def _run_serving(camera: Camera, config: VOConfig, points, appearances, masks
 
     # The frame -> frame-0 chains of all sequences in one scan (the products
     # run along the frame axis, each sequence on its own), then one map fold
-    # per sequence (pipeline._run's tail). A matmul batched over the sequences
-    # may round differently from run_sequence's over one: map positions agree
-    # to the last bits, not bit for bit. The inverses are taken a sequence at
-    # a time: the card's batched matrix-vector product rounds by a kernel
-    # chosen for the batch's size, and a sequence's map must not depend on
-    # the batch it was served in (dp serving's blocks equal one batch).
+    # over the batch (pipeline._run's tail). A matmul batched over the
+    # sequences may round differently from run_sequence's over one: map
+    # positions agree to the last bits, not bit for bit. The inverses are
+    # written per element (se3.inverse_elementwise): the card's batched
+    # matrix-vector product rounds by a kernel chosen for the batch's size,
+    # and a sequence's map must not depend on the batch it was served in
+    # (dp serving's blocks equal one batch).
     with stage("chains_and_transform"):
         forward = torch.cat([x_init[:, None], outs.pose[:, :-1]], dim=1)
-        heads = torch.stack([se3.inverse(p) for p in forward])
+        heads = se3.inverse_elementwise(forward)
         chains = se3.chain_products(heads.transpose(0, 1)).transpose(0, 1)
         tri_world = se3.transform_points(chains, outs.tri_points)
     with stage("map_fold"):
-        maps = [pipeline._fold_map(config, type(init_tri)(*(x[i] for x in init_tri)),
-                                   tri_world[i], type(outs)(*(x[i] for x in outs)))
-                for i in range(n)]
+        maps = pipeline._fold_map(config, init_tri, tri_world, outs)
     eye = torch.eye(4, dtype=points.dtype, device=points.device).expand(n, 1, 4, 4)
     trajectory = torch.cat([eye, x_init[:, None], outs.pose], dim=1)
-    return trajectory, _stack(maps), outs
+    return trajectory, maps, outs
 
 
 def run_sequences_batched(

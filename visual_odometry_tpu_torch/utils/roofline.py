@@ -54,6 +54,7 @@ from .timing import cuda_timed, sync
 # --- the card --------------------------------------------------------------
 
 FP32_LANES_PER_SM = 128   # Hopper: 4 partitions x 32 FP32 lanes an SM
+FP64_LANES_PER_SM = 64    # Hopper: 4 partitions x 16 FP64 lanes an SM (34 TFLOP/s on the SXM5)
 
 # Peaks that torch does not report, by torch.cuda.get_device_properties().name:
 # (boost clock Hz, device-memory bytes/s, dense bf16 tensor-core FLOP/s).
@@ -76,6 +77,7 @@ class ChipSpec:
     fp32_ops: float        # CUDA-core FP32 operations/s, a multiply-add one: SMs x 128 x clock
     tc_bf16_flops: float   # dense bf16 tensor-core FLOP/s
     hbm_bw: float          # device-memory bytes/s
+    fp64_ops: float = 0.0  # CUDA-core FP64 operations/s, a multiply-add one: SMs x 64 x clock
 
 
 def spec_for(props) -> ChipSpec:
@@ -88,7 +90,7 @@ def spec_for(props) -> ChipSpec:
                          f"{sorted(DATA_SHEETS)}") from None
     sms = int(props.multi_processor_count)
     return ChipSpec(name=props.name, sms=sms, fp32_ops=sms * FP32_LANES_PER_SM * clock,
-                    tc_bf16_flops=tc, hbm_bw=hbm_bw)
+                    tc_bf16_flops=tc, hbm_bw=hbm_bw, fp64_ops=sms * FP64_LANES_PER_SM * clock)
 
 
 # The card a work tally is reckoned against on any device (``ops/kernels/_lib.tally``,
@@ -107,10 +109,12 @@ class KernelModel:
     tc_flops: float
     fp32_ops: float
     hbm_bytes: float
+    fp64_ops: float = 0.0
 
     def bound(self, chip: ChipSpec) -> Tuple[float, str]:
         """(least seconds on ``chip``, ``"bytes"`` or ``"operations"``)."""
-        t_ops = max(self.tc_flops / chip.tc_bf16_flops, self.fp32_ops / chip.fp32_ops)
+        t_ops = max(self.tc_flops / chip.tc_bf16_flops, self.fp32_ops / chip.fp32_ops,
+                    self.fp64_ops / chip.fp64_ops if self.fp64_ops else 0.0)
         t_bytes = self.hbm_bytes / chip.hbm_bw
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -281,6 +285,34 @@ def take_table_model(n: int, t: int, r: int) -> KernelModel:
     """K10, ``out[r, n] = table[r, idx[n]]`` from an (R, T) table."""
     return KernelModel(name="take_table", tc_flops=0.0, fp32_ops=0.0,
                        hbm_bytes=4.0 * (r * t + n + r * n))
+
+
+# P1's operations (all float64) a correspondence and candidate in the
+# cheirality vote (triangulation.triangulate_pairs_elementwise: both rays 12,
+# the 2x2 system 15, the near-parallel guard 3, the ray parameters 6, the
+# acceptance tests 6, the midpoint 9, the finiteness tests 3), a live
+# correspondence's normalized pair and design row (4 + 9) before its 45
+# normal-matrix products, and a pair's null vector: the 9x9 eigen-solve's
+# least (a tridiagonal reduction, 4 n^3 / 3) and the LU with three solves
+# (n^3 / 3 + 3 n^2).
+EIGHT_POINT_VOTE_OPS = 54
+EIGHT_POINT_ROW_OPS = 13
+EIGHT_POINT_SOLVE_FP64_OPS = 4 * 729 // 3 + 729 // 3 + 3 * 81
+
+
+def eight_point_model(b: int, s: int, n: int, live: "int | None" = None) -> KernelModel:
+    """P1, the eight-point pose of B frame pairs of S correspondences over N
+    slots a frame, ``live`` of them valid (all by default), every operation
+    in float64 (a multiply-add one): the masked max of both frames (2 N
+    compares a frame), a design row and its 45 normal-matrix products a live
+    correspondence, the null vector, and the four candidates' votes over all
+    S; indices, validity, points and masks in, a pose a pair out."""
+    live = b * s if live is None else live
+    return KernelModel(name="eight_point", tc_flops=0.0, fp32_ops=0.0,
+                       hbm_bytes=b * (9.0 * s + 18.0 * n + 64.0) + 36.0,
+                       fp64_ops=b * (4.0 * n + s * 4.0 * EIGHT_POINT_VOTE_OPS
+                                     + EIGHT_POINT_SOLVE_FP64_OPS)
+                       + live * (EIGHT_POINT_ROW_OPS + 45.0))
 
 
 def pipeline_floor_s(frames: int, s: int, chip: ChipSpec, depth: int = 2, gn_rounds: float = 3,
