@@ -5,8 +5,10 @@ processes.
     python3 chip_ab.py launch OTHER_ROOT [--pairs 3] [--reps 200]
     python3 chip_ab.py kernels OTHER_ROOT [--pairs 3] [--reps 5]
     python3 chip_ab.py phases
+    python3 chip_ab.py p1_phases
     python3 chip_ab.py selfcheck OTHER_ROOT [--pairs 1]
     python3 chip_ab.py gn_rounds OTHER_ROOT [--pairs 1]
+    python3 chip_ab.py bootstrap OTHER_ROOT [--pairs 2] [--reps 5]
 
 Runs one worker for OTHER_ROOT and one for this checkout in the order other,
 this, this, other, other, this, ... (``--pairs`` of each), every worker a
@@ -66,6 +68,17 @@ whether its outputs equal the package's K4 bit for bit, and for the stamped
 builds the cycles a round spends in each phase (averaged over a cluster's
 CTAs). Never built or loaded by the package.
 
+``p1_phases`` (no OTHER_ROOT): P1 (csrc/eight_point.cu) broken into phases
+at path B's bootstrap pair (1 x 1,024) and path E's 64 pairs (x 128). It
+builds the source twice into build/vo_torch_kernels_diag/, as the package
+builds it and with -DVO_P1_PHASES (clock64() stamps of thread 0), and prints
+each build's registers and spill stores, its ms (CUDA events, median of
+``--reps``), whether its poses equal the package's P1 bit for bit, and for
+the stamped build the cycles a pair spends in each phase (averaged over the
+pairs) with their shares. Where the source has the bootstrap instance
+(``vo_eight_point_seed``), that instance is measured too, its ``seed``
+phase included. Never built or loaded by the package.
+
 ``selfcheck``: ``utils/selfcheck.check_frame_pipeline``'s comparison (the
 fused path, K1-K4, against the per-frame step form with the plain solve, 64
 slots x 10 frames under ``deep_camera``) at seeds 1-30, with the gap
@@ -84,6 +97,19 @@ full 510 frames (CUDA events, median of ``--reps``), the start pose's
 entries as hex floats and the triangulation's SHA-256, so two checkouts'
 bootstraps can be compared.
 
+``bootstrap``: each checkout's bootstrap stage through its own entry points:
+path B (``run_sequence``, 1,024 slots x 512 frames), path D (its planar
+form), the step form (path B's first 34 frames, ``scan_backend="step"``),
+path H (``run_sequence_chunked``, 4 chunks) and path E (the serving batch,
+64 x 128 x 128, and its planar batch of 8). For each: every ``profiling.stage``'s ms (host clock ended
+by a sync, median of ``--reps`` after a warm-up; ``bootstrap_init`` among
+them), then one profiled call after a profiler warm-up step: its wall ms,
+the device's busy share and P1's device ms and launches; and the SHA-256 of
+the trajectory and map (path E: also its per-frame outputs), which must be
+the same in both checkouts. Also the SHA-256 of ``initialize_batched``'s
+whole output at path E's bootstrap pairs, and of path A's ``run_vo_complete``
+trajectory and map on chip_smoke.py's generated 40-frame dataset.
+
 Needs one CUDA card; exits non-zero without one.
 """
 
@@ -93,6 +119,7 @@ import argparse
 import hashlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -431,15 +458,15 @@ PHASES = ("lane_terms", "warp_sum_and_stores", "wait_for_other_warps", "cross_wa
           "solve", "second_barrier")
 
 
-def _build_diag() -> dict:
-    """csrc/track_frames.cu in each diagnostic variant, nvcc started together."""
+def _build_diag(source: str = "track_frames.cu", variants=None) -> dict:
+    """``source`` in each diagnostic variant, nvcc started together."""
     from visual_odometry_tpu_torch.ops.kernels import _lib
 
     os.makedirs(DIAG_DIR, exist_ok=True)
     procs = {}
-    for name, defs in DIAG_VARIANTS.items():
+    for name, defs in (variants or DIAG_VARIANTS).items():
         cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, *defs, "-shared", "-o",
-               os.path.join(DIAG_DIR, name + ".so"), str(_lib.CSRC / "track_frames.cu")]
+               os.path.join(DIAG_DIR, name + ".so"), str(_lib.CSRC / source)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
     logs = {}
@@ -509,6 +536,104 @@ def _phases(reps: int) -> dict:
     return report
 
 
+P1_VARIANTS = {"p1": [], "p1_stamped": ["-DVO_P1_PHASES"]}
+P1_PHASES = ("masked_maxima", "normal_sums", "jacobi", "lu_and_inverse_iterations",
+             "svds_and_candidates", "votes", "seed", "stores")
+
+
+def _p1_phases(reps: int) -> dict:
+    import ctypes
+
+    import torch
+
+    import chip_smoke
+    from visual_odometry_tpu_torch.ops.kernels import epipolar_kernel
+    from visual_odometry_tpu_torch.utils import synthetic
+    from visual_odometry_tpu_torch.utils.config import DEFAULT_CONFIG, VOConfig
+
+    device = torch.device("cuda")
+    logs = _build_diag("eight_point.cu", P1_VARIANTS)
+    camera = synthetic.deep_camera(device=device)
+    cases = {"path_b": (VOConfig(n_slots=1024, map_capacity=2048),
+                        tuple(x[None, :2] for x in chip_smoke.path_b_inputs(2, 1024, device))),
+             "path_e": (DEFAULT_CONFIG, chip_smoke.serving_inputs(64, 2, 128, DEFAULT_CONFIG,
+                                                                  device))}
+    seeded = hasattr(epipolar_kernel, "bootstrap_batched_cuda")
+    report = {}
+    for label, (cfg, seqs) in cases.items():
+        args, (_, f1, _) = chip_smoke.eight_point_args(camera, cfg, *seqs)
+        want = {"pose": (epipolar_kernel.estimate_transform_batched_cuda(*args),)}
+        rows = {"package_ms": _ms(lambda: epipolar_kernel.estimate_transform_batched_cuda(*args),
+                                  reps)}
+        if seeded:
+            boot = (*args, f1.appearances, cfg.map_capacity)
+            want["seed"] = tuple(_flat_tensors(epipolar_kernel.bootstrap_batched_cuda(*boot)))
+            rows["package_seed_ms"] = _ms(lambda: epipolar_kernel.bootstrap_batched_cuda(*boot),
+                                          reps)
+        for name in P1_VARIANTS:
+            lib = ctypes.CDLL(os.path.join(DIAG_DIR, name + ".so"))
+            for inst, ref in want.items():
+                run, outs = _p1_runner(lib, inst, args, f1.appearances, cfg.map_capacity, ref)
+                row = {"ptxas": logs[name], "ms": _ms(run, reps)}
+                run()
+                torch.cuda.synchronize()
+                row["equals_package_bitwise"] = chip_smoke.same_bits(*zip(outs, ref))
+                if "stamped" in name:
+                    take = lib.vo_p1_phases_take
+                    take.argtypes = [ctypes.c_void_p]
+                    counts = (ctypes.c_ulonglong * 16)()
+                    take(counts)                 # zero what the timed runs added
+                    run()
+                    torch.cuda.synchronize()
+                    take(counts)
+                    pairs = counts[15]
+                    cycles = {p: counts[i] / pairs for i, p in enumerate(P1_PHASES)}
+                    total = sum(cycles.values())
+                    row.update(pairs=pairs, cycles_per_pair=cycles, cycles_total=total,
+                               share={p: c / total for p, c in cycles.items()})
+                rows[f"{name}_{inst}"] = row
+        report[label] = rows
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader"], stdout=subprocess.PIPE, text=True)
+    report["card_limit_clocks"] = smi.stdout.strip()
+    return report
+
+
+def _flat_tensors(t) -> list:
+    """The tensors of a tuple tree, in order (other leaves left out)."""
+    if hasattr(t, "data_ptr"):
+        return [t]
+    return [y for x in t for y in _flat_tensors(x)] if isinstance(t, (tuple, list)) else []
+
+
+def _p1_runner(lib, inst: str, args: tuple, apps2, capacity: int, ref: tuple):
+    """(run, outputs): one launch of a diagnostic build's P1 instance (``pose``:
+    vo_eight_point, ``seed``: vo_eight_point_seed) into fresh outputs shaped
+    as the package's ``ref``, the wrapper's argument order (epipolar_kernel)."""
+    import torch
+
+    from visual_odometry_tpu_torch.ops.kernels import _lib, epipolar_kernel
+
+    symbol = "vo_eight_point" if inst == "pose" else "vo_eight_point_seed"
+    fn = getattr(lib, symbol)
+    fn.argtypes = _lib._SIGNATURES[symbol]
+    outs = tuple(torch.empty_like(t) for t in ref)
+    b, s = args[1].shape
+    n, d = args[4].shape[1], apps2.shape[-1]
+    if inst == "pose":
+        ptrs, tail = args + outs, (b, s, n)
+    else:
+        ptrs = args + (apps2,) + outs
+        tail = (b, s, n, capacity, d, 2 * n, 2 * n, n, n, n * d, epipolar_kernel.mount_arg(None))
+
+    def run():
+        code = fn(*(t.data_ptr() for t in ptrs), *tail, torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"{symbol}: launch failed with CUDA error {code}")
+
+    return run, outs
+
+
 def _selfcheck(reps: int) -> dict:
     import torch
 
@@ -576,6 +701,80 @@ def _gn_rounds(reps: int) -> dict:
     return out
 
 
+def _bootstrap(reps: int) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    import chip_smoke   # the worker's own root is first on sys.path
+    from visual_odometry_tpu_torch.models import pipeline
+    from visual_odometry_tpu_torch.parallel import multiseq, posegraph
+    from visual_odometry_tpu_torch.utils import profiling, synthetic
+    from visual_odometry_tpu_torch.utils.config import DEFAULT_CONFIG, VOConfig
+    from visual_odometry_tpu_torch.utils.roofline import device_events
+
+    device = torch.device("cuda")
+    camera = synthetic.deep_camera(device=device)
+    config = VOConfig(n_slots=1024, map_capacity=2048)
+    planar = config.with_planar_mount(chip_smoke.mount_matrix("cpu").numpy())
+    seq_b = chip_smoke.path_b_inputs(512, 1024, device)
+    seq_d = chip_smoke.path_d_inputs(512, 1024, device)
+    seq_e = chip_smoke.serving_inputs(64, 128, 128, DEFAULT_CONFIG, device)
+    planar_e = DEFAULT_CONFIG.with_planar_mount(chip_smoke.mount_matrix("cpu").numpy())
+    seq_e8 = chip_smoke.serving_inputs(8, 128, 128, planar_e, device)
+    step = config.replace(scan_backend="step")
+    head = tuple(x[:34] for x in seq_b)
+    paths = {
+        "path_b": lambda: pipeline.run_sequence(camera, config, *seq_b),
+        "path_d": lambda: pipeline.run_sequence(camera, planar, *seq_d),
+        "step_34_frames": lambda: pipeline.run_sequence(camera, step, *head),
+        "path_h": lambda: posegraph.run_sequence_chunked(camera, config, *seq_b, num_chunks=4,
+                                                         overlap=10),
+        "path_e": lambda: multiseq.run_sequences_batched(camera, DEFAULT_CONFIG, *seq_e),
+        "path_e_planar_8": lambda: multiseq.run_sequences_batched(camera, planar_e, *seq_e8)}
+    out = {}
+    for name, fn in paths.items():
+        with profiling.stage_times() as timer:
+            for _ in range(reps + 1):
+                result = fn()
+        row = {"stages_ms": {k: 1e3 * statistics.median(v[1:])
+                             for k, v in timer.samples.items()}}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.step()
+        on_card = device_events(prof)
+        p1 = [e.time_range.elapsed_us() for e in on_card if "eight_point" in e.name]
+        row.update(wall_ms=1e3 * wall,
+                   busy_share=sum(e.time_range.elapsed_us() for e in on_card) / 1e6 / wall,
+                   p1_device_ms=sum(p1) / 1e3, p1_launches=len(p1),
+                   sha=_sha(_flat_tensors(result)))
+        out[name] = row
+    args, (f0, f1, corr) = chip_smoke.eight_point_args(camera, DEFAULT_CONFIG, *seq_e)
+    out["initialize_batched_path_e"] = {"sha": _sha(_flat_tensors(
+        pipeline.initialize_batched(camera, DEFAULT_CONFIG, f0, f1, corr=corr)))}
+    # Path A's tracking app on chip_smoke.py's generated dataset.
+    from visual_odometry_tpu_torch import apps
+    from visual_odometry_tpu_torch.utils import dataset_gen
+
+    work = os.path.join(os.getcwd(), "build", "chip_ab", "path_a")
+    shutil.rmtree(work, ignore_errors=True)
+    dataset_gen.generate_dataset(os.path.join(work, "data"), num_frames=40, num_landmarks=400,
+                                 seed=1)
+    traj, map_state, _, _ = apps.run_vo_complete(os.path.join(work, "data"),
+                                                 os.path.join(work, "out"), verbose=False,
+                                                 device=device)
+    out["path_a_vo_complete"] = {"sha": _sha([torch.as_tensor(traj), *map_state])}
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def worker(mode: str, root: str, reps: int) -> int:
     import torch
 
@@ -587,22 +786,22 @@ def worker(mode: str, root: str, reps: int) -> int:
 
     _lib.build()
     result = {"serving": _serving, "launch": _launch, "kernels": _kernels,
-              "selfcheck": _selfcheck, "gn_rounds": _gn_rounds}[mode](reps)
+              "selfcheck": _selfcheck, "gn_rounds": _gn_rounds, "bootstrap": _bootstrap}[mode](reps)
     print(json.dumps({"root": root, mode: result}))
     return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("serving", "launch", "kernels", "phases", "selfcheck",
-                                     "gn_rounds"))
+    ap.add_argument("mode", choices=("serving", "launch", "kernels", "phases", "p1_phases",
+                                     "selfcheck", "gn_rounds", "bootstrap"))
     ap.add_argument("other", nargs="?")
     ap.add_argument("--pairs", type=int, default=None)
     ap.add_argument("--reps", type=int, default=None)
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
-    reps = a.reps or {"serving": 5, "launch": 200, "kernels": 5, "phases": 3, "selfcheck": 1,
-                      "gn_rounds": 5}[a.mode]
+    reps = a.reps or {"serving": 5, "launch": 200, "kernels": 5, "phases": 3, "p1_phases": 20,
+                      "selfcheck": 1, "gn_rounds": 5, "bootstrap": 5}[a.mode]
     if a.worker:
         return worker(a.mode, os.path.abspath(a.other), reps)
     import torch
@@ -610,14 +809,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA device is available", file=sys.stderr)
         return 2
-    if a.mode == "phases":
-        print(json.dumps({"phases": _phases(reps)}))
+    if a.mode in ("phases", "p1_phases"):
+        fn = _phases if a.mode == "phases" else _p1_phases
+        print(json.dumps({a.mode: fn(reps)}))
         return 0
     if a.other is None:
         ap.error(f"{a.mode} needs OTHER_ROOT")
     if a.mode == "kernels":
         _prepare_kernel_inputs()
-    pairs = a.pairs or {"serving": 5, "selfcheck": 1, "gn_rounds": 1}.get(a.mode, 3)
+    pairs = a.pairs or {"serving": 5, "selfcheck": 1, "gn_rounds": 1, "bootstrap": 2}.get(a.mode, 3)
     other = os.path.abspath(a.other)
     order = [("other", "this") if i % 2 == 0 else ("this", "other") for i in range(pairs)]
     ab = {}

@@ -36,12 +36,15 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      rounds and device us a round (K6), and the launch floor (a one-float
      fill's times) beside the bound;
      K11 linearization at N = 1024 and 8192, twice bit for bit alike; P1
-     (eight_point, port-only: the JAX package's XLA eight-point step) at
-     path E's 64 pairs x 128 correspondences, path B's pair x 1,024 and
-     path H's 4 chunk pairs, bit for bit against its plain version and twice
-     alike, batch-invariant at B = 1, 16, 32 and 64 with
-     pipeline.initialize_batched and the batched merge_stream, beside the
-     stacked torch.linalg form of the step (its library time); every
+     (eight_point, port-only: the JAX package's XLA eight-point step and
+     the rest of its bootstrap) at path E's 64 pairs x 128 correspondences,
+     path B's pair x 1,024 and path H's 4 chunk pairs, both instances (the
+     pose alone, and the whole bootstrap the main path launches: pose,
+     triangulation, seeded maps, lookups, histories) bit for bit against
+     their plain versions on every output and twice alike, batch-invariant
+     at B = 1, 16, 32 and 64 with pipeline.initialize_batched and the
+     batched merge_stream, beside the stacked torch.linalg form of the pose
+     (its library time); every
      row's bound_ms and bound_by come from a utils/roofline work model at
      the row's shapes (and GN rounds) against this card's spec;
   3b. utils/selfcheck.run_all's eight checks on the card, each with its
@@ -778,10 +781,7 @@ def blocks_equal(fn, args, full, sizes=(1, 16, 32)) -> dict:
     ``full``'s bits: a tensor or a tuple tree of tensors, the batch first."""
     import torch
 
-    def flat(t):
-        return [t] if isinstance(t, torch.Tensor) else [y for x in t for y in flat(x)]
-
-    want = flat(full)
+    want = blocks_flat(full)
     b = want[0].shape[0]
 
     def cut(a, i, size):
@@ -794,7 +794,7 @@ def blocks_equal(fn, args, full, sizes=(1, 16, 32)) -> dict:
 
     out = {}
     for size in sizes:
-        parts = [flat(fn(*cut(tuple(args), i, size))) for i in range(0, b, size)]
+        parts = [blocks_flat(fn(*cut(tuple(args), i, size))) for i in range(0, b, size)]
         out[str(size)] = same_bits(*((torch.cat([p[j] for p in parts]), w)
                                      for j, w in enumerate(want)))
     return out
@@ -802,16 +802,21 @@ def blocks_equal(fn, args, full, sizes=(1, 16, 32)) -> dict:
 
 def compare_eight_point(camera, config, serving_seqs, serving_config, seq_b, plan, device, table,
                         reps: int = 10, launch_reps: int = 50):
-    """P1 (eight_point) against its plain version, bit for bit, at the main
+    """P1 (eight_point) against its plain versions, bit for bit, at the main
     path's shapes: path E's 64 pairs (S = 128), path B's pair (S = 1,024) and
-    path H's 4 chunk pairs; two launches with the same bits. Batch
-    invariance on the card at B = 1, 16, 32 and 64 for P1, for
-    ``pipeline.initialize_batched`` (every state tensor) and for the batched
-    fold (``landmark_map.merge_stream`` over path E's kind of streams). The
-    stacked torch.linalg form of the step (linalg_eight_point) timed beside
-    it as the row's library time, with whether it is batch-invariant
-    (reported, not required). Each row: ms, the launch alone, plain ms, the
-    bound and the launch floor."""
+    path H's 4 chunk pairs; two launches with the same bits. Each shape takes
+    both instances: ``pose`` (estimate_transform_batched, the pose alone) and
+    ``seed`` (bootstrap_batched, what the main path launches: the pose, the
+    triangulation, the seeded maps, the lookups and the histories, every
+    output held). Batch invariance on the card at B = 1, 16, 32 and 64 for
+    both instances, for ``pipeline.initialize_batched`` (every state
+    tensor) and for the batched fold (``landmark_map.merge_stream`` over
+    path E's kind of streams). The stacked torch.linalg form of the pose
+    (linalg_eight_point) timed beside it as the row's library time, with
+    whether it is batch-invariant (reported, not required). Each instance's
+    row: ms, the launch alone, device and host ms, plain ms, the bound and
+    the launch floor; the kernel row's own numbers are path E's bootstrap
+    instance's."""
     import torch
 
     from visual_odometry_tpu_torch.models import landmark_map, pipeline
@@ -820,8 +825,12 @@ def compare_eight_point(camera, config, serving_seqs, serving_config, seq_b, pla
     from visual_odometry_tpu_torch.utils import roofline
     from visual_odometry_tpu_torch.utils.roofline import launch_floor, launch_times
 
-    cuda, plain = (epipolar_kernel.estimate_transform_batched_cuda,
-                   epipolar_kernel.estimate_transform_batched_plain)
+    instances = {"pose": (epipolar_kernel.estimate_transform_batched_cuda,
+                          epipolar_kernel.estimate_transform_batched_plain,
+                          epipolar_kernel.estimate_transform_batched),
+                 "seed": (epipolar_kernel.bootstrap_batched_cuda,
+                          epipolar_kernel.bootstrap_batched_plain,
+                          epipolar_kernel.bootstrap_batched)}
     floor = launch_floor(device, launch_reps)
     chunks = [posegraph._chunk(x, *plan) for x in seq_b]
     cases = {"path_e": (serving_config, serving_seqs),
@@ -829,32 +838,46 @@ def compare_eight_point(camera, config, serving_seqs, serving_config, seq_b, pla
              "path_h": (config, tuple(chunks))}
     row = dict(max_abs_err=0.0, bitwise=True)
     for label, (cfg, seqs) in cases.items():
-        args, (f0, f1, corr) = eight_point_args(camera, cfg, *seqs)
-        out = cuda(*args)
-        again = cuda(*args)
-        ref = plain(*args)
-        require(bool(torch.isfinite(out).all()), f"P1 {label}: non-finite pose")
-        require(same_bits((out, again)), f"P1 {label}: two launches gave different bits")
-        require(same_bits((out, ref)), f"P1 {label}: differs from the plain version by "
-                f"{float((out - ref).abs().max())}")
-        alone = launch_times(lambda: cuda(*args), device, launch_reps)
-        b, s = args[1].shape
-        live = int(args[3].sum())
-        lib_out = linalg_eight_point(*args)
-        sub = dict(
-            pairs=b, correspondences=s, slots=int(args[4].shape[1]), live_correspondences=live,
-            ms=time_ms(lambda: epipolar_kernel.estimate_transform_batched(*args), device, reps),
-            launch_ms=alone["ms"], device_ms=alone["device_ms"], host_ms=alone["host_ms"],
-            plain_ms=time_ms(lambda: plain(*args), device, 3),
-            library_ms=time_ms(lambda: linalg_eight_point(*args), device, reps),
-            library_max_abs_diff=float((lib_out - out).abs().max()),
-            **roofline_bound(roofline.eight_point_model(b, s, int(args[4].shape[1]), live),
-                             device), launch_floor=floor)
+        pose_args, (f0, f1, corr) = eight_point_args(camera, cfg, *seqs)
+        b, s = pose_args[1].shape
+        n, d = int(pose_args[4].shape[1]), int(f1.appearances.shape[-1])
+        live = int(pose_args[3].sum())
+        sub = dict(pairs=b, correspondences=s, slots=n, live_correspondences=live,
+                   map_capacity=cfg.map_capacity)
+        for inst, (cuda, plain, wrapper) in instances.items():
+            args = pose_args if inst == "pose" else (
+                pose_args + (f1.appearances, cfg.map_capacity, None))
+            out = cuda(*args)
+            again = cuda(*args)
+            ref = plain(*args)
+            flat = blocks_flat(out)
+            poses = (out,) if inst == "pose" else (out.x_init, out.history)
+            require(all(bool(torch.isfinite(x).all()) for x in poses),
+                    f"P1 {inst} {label}: non-finite pose")
+            require(same_bits(*zip(flat, blocks_flat(again))),
+                    f"P1 {inst} {label}: two launches gave different bits")
+            require(same_bits(*zip(flat, blocks_flat(ref))),
+                    f"P1 {inst} {label}: differs from the plain version")
+            alone = launch_times(lambda: cuda(*args), device, launch_reps)
+            model = (roofline.eight_point_model(b, s, n, live) if inst == "pose" else
+                     roofline.eight_point_model(b, s, n, live, cfg.map_capacity, d))
+            sub[inst] = dict(
+                ms=time_ms(lambda: wrapper(*args), device, reps),
+                launch_ms=alone["ms"], device_ms=alone["device_ms"], host_ms=alone["host_ms"],
+                plain_ms=time_ms(lambda: plain(*args), device, 3),
+                **roofline_bound(model, device), launch_floor=floor)
+            if label == "path_e":
+                inv = blocks_equal(cuda, args, out)
+                require(all(inv.values()), f"P1 {inst}: not batch-invariant on the card: {inv}")
+                sub[inst]["batch_invariant"] = inv
+            if inst == "pose":
+                lib_out = linalg_eight_point(*args)
+                sub["library_ms"] = time_ms(lambda: linalg_eight_point(*args), device, reps)
+                sub["library_max_abs_diff"] = float((lib_out - out).abs().max())
+                if label == "path_e":
+                    sub["library_batch_invariant"] = blocks_equal(linalg_eight_point, args,
+                                                                  lib_out)
         if label == "path_e":
-            inv = blocks_equal(cuda, args, out)
-            require(all(inv.values()), f"P1: not batch-invariant on the card: {inv}")
-            sub["batch_invariant"] = inv
-            sub["library_batch_invariant"] = blocks_equal(linalg_eight_point, args, lib_out)
             # The whole batched initialize, every state tensor, by blocks.
             state = pipeline.initialize_batched(camera, cfg, f0, f1, corr=corr)
             init = blocks_equal(lambda u, v, c: pipeline.initialize_batched(
@@ -868,9 +891,17 @@ def compare_eight_point(camera, config, serving_seqs, serving_config, seq_b, pla
             require(all(fold.values()), f"merge_stream: not batch-invariant: {fold}")
             sub["fold_batch_invariant"] = fold
         row[label] = sub
-    row.update({k: row["path_e"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                              "bound_by")})
+    e = row["path_e"]
+    row.update({k: e["seed"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+               library_ms=e["library_ms"])
     table["eight_point"] = row
+
+
+def blocks_flat(t):
+    """The tensors of a tensor or a tuple tree of tensors, in order."""
+    import torch
+
+    return [t] if isinstance(t, torch.Tensor) else [y for x in t for y in blocks_flat(x)]
 
 
 def fold_streams(b: int, config, device, frames: int = SERVE_FRAMES, seed: int = 0):

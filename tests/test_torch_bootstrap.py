@@ -301,8 +301,9 @@ def test_fold_map_batched_equals_each_sequence():
 
 def test_work_tally_counts_the_bootstrap():
     """Inside ``_lib.counting_work`` the batched bootstrap adds P1's model
-    once a call at its shapes (the work partition of parallel/scaling counts
-    it), whichever backend runs it."""
+    once a call at its shapes, the bootstrap instance's seed included (the
+    work partition of parallel/scaling counts it), whichever backend runs
+    it."""
     from visual_odometry_tpu_torch.ops.kernels import _lib
     from visual_odometry_tpu_torch.utils import roofline
 
@@ -310,8 +311,9 @@ def test_work_tally_counts_the_bootstrap():
     pts, apps, masks = (torch.from_numpy(np.stack([s[k] for s in seqs])) for k in range(3))
     ids = torch.full(masks.shape, -1, dtype=torch.int32)
     f0, f1 = (tpipe.FrameData(*(x[:, i] for x in (pts, apps, masks, ids))) for i in (0, 1))
+    cfg = VOConfig(n_slots=S)
     with _lib.counting_work() as work:
-        tpipe.initialize_batched(tsyn.deep_camera(), VOConfig(n_slots=S), f0, f1)
-    m = roofline.eight_point_model(3, S, S)
+        tpipe.initialize_batched(tsyn.deep_camera(), cfg, f0, f1)
+    m = roofline.eight_point_model(3, S, S, capacity=cfg.map_capacity, d=apps.shape[-1])
     assert work["eight_point"] == [1, m.tc_flops, m.fp32_ops, m.hbm_bytes,
                                    m.speed_of_light_s(roofline.H100)]

@@ -14,7 +14,9 @@ correctly rounded sqrt and the card's sin/cos, so their poses are held to
 1e-5 (bitwise expected). K8 equals K4/K5 per sequence exactly (the same ``__global__``),
 K10 is a copy and exact, K11 sums in its plain version's order (1e-5 of the
 largest entry, bitwise expected), K9 sums in one fixed order that its plain
-version repeats: exact, and the same bits in every launch. utils/selfcheck's
+version repeats: exact, and the same bits in every launch. P1 (both
+instances, every output) is exact: its plain versions repeat its arithmetic
+op for op. utils/selfcheck's
 checks hold their own tolerances (the JAX package's), and utils/roofline's
 fractions lie in (0, 1].
 """
@@ -1359,6 +1361,109 @@ def test_eight_point_batch_invariance(dev):
         parts = [epipolar_kernel.estimate_transform_batched(
             args[0], *(a[i:i + size] for a in args[1:])) for i in range(0, 64, size)]
         assert torch.equal(_bits(torch.cat(parts)), _bits(full)), size
+
+
+def _seed_args(dev, count, slots, case):
+    """P1 bootstrap-instance arguments (the pose's, the second frames'
+    appearances, the map capacity, the mount) for ``count`` bootstrap pairs:
+    ``plain`` as initialize_batched builds them, ``degenerate`` with
+    _p1_degenerate's rows, ``duplicate`` with slot 9 of every pair a copy of
+    slot 3 and slot 20 on slot 11's second-frame measurement, ``truncated``
+    with a capacity of a quarter of the slots, ``planar`` with a mount."""
+    args, (_, cfg, _, f1, _) = _eight_point_batch(dev, count, 2, slots)
+    if case == "degenerate":
+        args = _p1_degenerate(args)
+    if case == "duplicate":
+        k, i1, i2, v, *rest = args
+        i1, i2, v = i1.clone(), i2.clone(), v.clone()
+        i1[:, 9], i2[:, 9], v[:, 9] = i1[:, 3], i2[:, 3], v[:, 3]
+        i2[:, 20], v[:, 20] = i2[:, 11], v[:, 11]
+        args = (k, i1, i2, v, *rest)
+    capacity = slots // 4 if case == "truncated" else cfg.map_capacity
+    mount = _mount(dev).cpu().numpy() if case == "planar" else None
+    return args + (f1.appearances, capacity, mount)
+
+
+def _seed_flat(t):
+    return [t] if isinstance(t, torch.Tensor) else [y for x in t for y in _seed_flat(x)]
+
+
+def _same_seed_bits(a, b):
+    for x, y in zip(_seed_flat(a), _seed_flat(b)):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(_bits(x) if x.is_floating_point() else x,
+                           _bits(y) if y.is_floating_point() else y)
+
+
+@pytest.mark.parametrize("count,slots,case", [
+    (64, 128, "plain"), (1, 1024, "plain"), (4, 1024, "plain"), (8, 128, "degenerate"),
+    (8, 128, "duplicate"), (8, 128, "truncated"), (8, 128, "planar"), (2, 1024, "truncated")])
+def test_eight_point_seed_equals_plain(dev, count, slots, case):
+    """P1's bootstrap instance bit for bit against its plain version on every
+    output (pose, history, triangulation, map, lookup) at path E's, B's and
+    H's shapes and on degenerate pairs, duplicate second-frame measurements,
+    a truncated map and a planar mount; one launch a call, two launches with
+    the same bits; its pose equals the pose-only instance's without a mount."""
+    args = _seed_args(dev, count, slots, case)
+    _lib.reset_launches()
+    got = epipolar_kernel.bootstrap_batched(*args)
+    assert _lib.launches["eight_point"] == 1
+    again = epipolar_kernel.bootstrap_batched(*args)
+    ref = epipolar_kernel.bootstrap_batched_plain(*args)
+    _same_seed_bits(got, ref)
+    _same_seed_bits(got, again)
+    assert bool(torch.isfinite(got.x_init).all()) and bool(torch.isfinite(got.history).all())
+    if case != "planar":
+        assert torch.equal(_bits(got.x_init), _bits(epipolar_kernel.estimate_transform_batched(
+            *args[:8])))
+    if case == "truncated":
+        assert bool((got.map.count == args[9]).all())
+    if case == "duplicate":
+        rows = torch.arange(count, device=dev)
+        live = got.tri_valid[:, 3] & got.tri_valid[:, 9]
+        assert bool(live.any())
+        assert bool((got.point_lookup[rows, args[2][:, 3].long()][live] == 3).all())
+
+
+def test_eight_point_seed_batch_invariance(dev):
+    """A pair's bootstrap (every output) has the same bits alone, in blocks
+    of 16 and 32 and in the batch of 64."""
+    *args, apps2, capacity, mount = _seed_args(dev, 64, 128, "plain")
+    full = epipolar_kernel.bootstrap_batched(*args, apps2, capacity, mount)
+    for size in (1, 16, 32):
+        parts = [epipolar_kernel.bootstrap_batched(
+            args[0], *(a[i:i + size] for a in args[1:]), apps2[i:i + size], capacity, mount)
+            for i in range(0, 64, size)]
+        flat = [_seed_flat(p) for p in parts]
+        for j, w in enumerate(_seed_flat(full)):
+            assert torch.equal(torch.cat([p[j] for p in flat]), w), (size, j)
+
+
+def test_initialize_batched_makes_no_host_sync(dev):
+    """The bootstrap stage on the card is one P1 launch and nothing else, with
+    no device-to-host sync (torch.cuda.set_sync_debug_mode("error")), on
+    frames cut from (B, F, ...) stacks as the serving path cuts them."""
+    seqs = [synthetic.generate_tracking_sequence(np.random.default_rng(i), 3, 128)
+            for i in range(16)]
+    pts, apps, masks = (torch.from_numpy(np.stack([q[k] for q in seqs])).to(dev)
+                        for k in range(3))
+    ids = torch.full(masks.shape, -1, dtype=torch.int32, device=dev)
+    f0, f1 = (pipeline.FrameData(*(x[:, i] for x in (pts, apps, masks, ids))) for i in (0, 1))
+    cfg = VOConfig(n_slots=128, map_capacity=256)
+    camera = synthetic.deep_camera(device=dev)
+    corr = pipeline._batched_match(cfg, False, f1, f0)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, x_init = pipeline.initialize_batched(camera, cfg, f0, f1, corr=corr)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert _lib.launches["eight_point"] == 1
+    assert sum(_lib.launches.values()) == 1
+    contiguous = [pipeline.FrameData(*(x.contiguous() for x in f)) for f in (f0, f1)]
+    want = pipeline.initialize_batched(camera, cfg, *contiguous, corr=corr)
+    _same_seed_bits((state, x_init), want)
 
 
 def test_initialize_batched_and_fold_batch_invariant(dev):

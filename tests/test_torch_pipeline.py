@@ -111,7 +111,8 @@ def test_run_sequence_matches_jax_fused_shared_bootstrap(sequence, jax_run, monk
     """With the JAX bootstrap pose handed to the port, every tracked pose is
     within 1e-4 of the fused interpreter's and the map matches."""
     x_init = torch.from_numpy(jax_run[0][1].copy())
-    monkeypatch.setattr(tpipe.epipolar, "estimate_transform", lambda *a: x_init)
+    monkeypatch.setattr(tpipe.epipolar_kernel, "estimate_transform_batched_plain",
+                        lambda *a: x_init[None])
     port = _port_run(sequence)
     np.testing.assert_allclose(port[0].numpy(), jax_run[0], atol=1e-4)
     _check_map_and_counts(port, jax_run)
@@ -158,7 +159,8 @@ def test_fused_join_depth_overflow_raises(rng, monkeypatch):
     jtraj, _, jouts = jpipe.run_sequence(jsyn.default_camera(), jcfg,
                                          *(jnp.asarray(x) for x in (pts, apps, masks)))
     x_init = torch.from_numpy(np.array(jtraj[1]))
-    monkeypatch.setattr(tpipe.epipolar, "estimate_transform", lambda *a: x_init)
+    monkeypatch.setattr(tpipe.epipolar_kernel, "estimate_transform_batched_plain",
+                        lambda *a: x_init[None])
     traj, _, outs = tpipe.run_sequence(tsyn.default_camera(), cfg.replace(fused_join_depth=3),
                                        *tensors)
     assert int(outs.join_overflow.sum()) == 0

@@ -63,7 +63,8 @@ def _share_bootstrap(monkeypatch, x_init):
     In a planar run that pose is already planarized; planarizing it again
     changes it by rounding only."""
     pose = torch.from_numpy(np.array(x_init))
-    monkeypatch.setattr(tpipe.epipolar, "estimate_transform", lambda *a: pose)
+    monkeypatch.setattr(tpipe.epipolar_kernel, "estimate_transform_batched_plain",
+                        lambda *a: pose[None])
 
 
 def test_planar_fused_plain_matches_jax_kernel(sequence, jax_fused_planar, monkeypatch):

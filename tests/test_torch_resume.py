@@ -75,8 +75,8 @@ def _cfg(**kw):
 
 def test_initialize_state_matches_jax(sequence, jax_state0, monkeypatch):
     jstate, x_init = jax_state0
-    monkeypatch.setattr(tpipe.epipolar, "estimate_transform",
-                        lambda *a: torch.from_numpy(x_init.copy()))
+    monkeypatch.setattr(tpipe.epipolar_kernel, "estimate_transform_batched_plain",
+                        lambda *a: torch.from_numpy(x_init.copy())[None])
     pts, apps, masks, ids = _tensors(sequence)
     state, _ = tpipe.initialize(tsyn.deep_camera(), _cfg(),
                                 tpipe.FrameData(pts[0], apps[0], masks[0], ids[0]),
@@ -127,8 +127,8 @@ def test_split_equals_oneshot(sequence, jax_state0, scan_backend, tmp_path, monk
             torch.cat([getattr(out_a, field), getattr(out_b, field)]).numpy())
 
     # And the whole-run entry point agrees, from the same bootstrap pose.
-    monkeypatch.setattr(tpipe.epipolar, "estimate_transform",
-                        lambda *a: torch.from_numpy(jax_state0[1].copy()))
+    monkeypatch.setattr(tpipe.epipolar_kernel, "estimate_transform_batched_plain",
+                        lambda *a: torch.from_numpy(jax_state0[1].copy())[None])
     traj, m, _ = tpipe.run_sequence(cam, cfg, *_tensors(sequence)[:3])
     np.testing.assert_allclose(traj[2:].numpy(), split.numpy(), atol=5e-3)
     assert int(m.count) == int(state_b.map.count)
@@ -225,8 +225,8 @@ def test_match_by_ids_and_known_da_match_jax(sequence, monkeypatch):
     jcfg = JaxConfig(n_slots=S, map_capacity=256, gn_iterations=20, scan_backend="fused_interpret")
     jtraj, jm, jo = jpipe.run_sequence_known_da(jsyn.deep_camera(), jcfg,
                                                 *(jnp.asarray(x) for x in shuffled))
-    monkeypatch.setattr(tpipe.epipolar, "estimate_transform",
-                        lambda *a: torch.from_numpy(np.array(jtraj[1])))
+    monkeypatch.setattr(tpipe.epipolar_kernel, "estimate_transform_batched_plain",
+                        lambda *a: torch.from_numpy(np.array(jtraj[1]))[None])
     traj, m, o = tpipe.run_sequence_known_da(tsyn.deep_camera(), _cfg(),
                                              *(torch.from_numpy(x) for x in shuffled))
     np.testing.assert_allclose(traj.numpy(), np.asarray(jtraj), atol=1e-4)

@@ -204,6 +204,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+
+
+class Mount(ctypes.Structure):
+    """P1's planar mount by value (csrc/eight_point.cu): 16 floats row-major
+    and a flag, 0 for no planar projection."""
+
+    _fields_ = [("m", ctypes.c_float * 16), ("planar", ctypes.c_int)]
+
+
 _SIGNATURES = {
     "vo_match_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vo_join_candidates": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -219,6 +228,7 @@ _SIGNATURES = {
     "vo_take_table": [_P, _L, _L, _P, _P, _L, _I, _I, _I, _P],
     "vo_picp_linearize": [_P] * 12 + [_I] * 3 + [_F, _F, _P],
     "vo_eight_point": [_P] * 9 + [_I] * 3 + [_P],
+    "vo_eight_point_seed": [_P] * 18 + [_I] * 5 + [_L] * 5 + [Mount, _P],
 }
 
 _lib = None

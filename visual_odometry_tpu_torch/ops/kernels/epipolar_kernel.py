@@ -1,5 +1,7 @@
 """P1: the eight-point two-view pose of a batch of frame pairs in one launch,
-``estimate_transform_batched`` (``csrc/eight_point.cu``).
+``estimate_transform_batched``, and the whole two-view bootstrap of the
+batch in one launch, ``bootstrap_batched`` (``csrc/eight_point.cu``, its
+``SEED`` instance).
 
 A port-only kernel: the JAX package computes this step with XLA
 (``visual_odometry_tpu/ops/epipolar.py:estimate_transform``, vmapped by its
@@ -46,6 +48,19 @@ differences.
    arithmetic; the first maximum wins, the identity when no candidate has a
    vote.
 
+6. (``bootstrap_batched``) what ``models/pipeline.initialize`` does after the
+   pose: with a planar mount ``c``, the pose becomes ``c^-1 P(c X c^-1) c``
+   (``se3.project_se2_elementwise``, float32 products); the valid
+   correspondences are triangulated with
+   ``triangulation.triangulate_pairs_elementwise``'s arithmetic (the pose's
+   matrices formed in float64 and rounded once, float32 rays, the 2x2
+   mid-point system in float64); the map that ``landmark_map.update`` seeds
+   from an empty one: the triangulated slots in slot order, truncated at the
+   capacity, with the second frame's appearances (utils.cpp:127); the
+   lookup from each second-frame measurement to the first live slot on it
+   (``matching.lookup_from_corr``, -1 where none); the pose's inverse as the
+   history (``se3.inverse_elementwise``).
+
 Eigenvector and singular-vector signs and orders may differ from LAPACK's;
 the candidate set, and so the chosen pose, does not.
 :func:`estimate_transform_batched_plain` repeats the kernel's arithmetic in its order on stacked tensors (elementwise operations
@@ -55,10 +70,15 @@ only, each correctly rounded), so on the card the two agree bit for bit under
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
+import numpy as np
 import torch
 
+from ...models import landmark_map
+from ...models.landmark_map import LandmarkMap
 from ...utils import roofline
-from .. import se3, triangulation
+from .. import matching, se3, triangulation
 from . import _lib
 
 WARP = 32
@@ -434,3 +454,152 @@ def estimate_transform_batched(camera_matrix, idx1, idx2, corr_valid, p1_img, p2
             c(mask1, torch.bool), c(mask2, torch.bool))
     return estimate_transform_batched_plain(camera_matrix, idx1, idx2, corr_valid, p1_img,
                                             p2_img, mask1, mask2)
+
+
+class Bootstrap(NamedTuple):
+    """A batch's two-view bootstrap (module docstring, step 6), every tensor
+    with the batch first."""
+
+    x_init: torch.Tensor        # (B, 4, 4) frame 0 in frame 1, planarized with a mount
+    history: torch.Tensor       # (B, 4, 4) its inverse
+    tri_points: torch.Tensor    # (B, S, 3) frame-0 coordinates, zero where not valid
+    tri_valid: torch.Tensor     # (B, S) bool
+    map: LandmarkMap            # (B, C, ...) seeded from an empty map
+    point_lookup: torch.Tensor  # (B, S) int32: second-frame measurement -> first slot, or -1
+
+
+def bootstrap_batched_plain(camera_matrix, idx1, idx2, corr_valid, p1_img, p2_img, mask1, mask2,
+                            apps2, capacity: int,
+                            mount: Optional[np.ndarray] = None) -> Bootstrap:
+    """The bootstrap instance's arithmetic on stacked tensors: the pose's
+    plain version, then step 6 as the composition ``models/pipeline`` ran
+    before P1 took it over, op for op."""
+    x_init = estimate_transform_batched_plain(camera_matrix, idx1, idx2, corr_valid, p1_img,
+                                              p2_img, mask1, mask2)
+    mul = se3.matmul_elementwise
+    if mount is not None:
+        # Planarize the two-view init so the whole trajectory stays in the
+        # conjugated SE(2) subgroup the solver moves in (ops/picp_se2).
+        c = torch.from_numpy(mount).to(device=x_init.device, dtype=x_init.dtype)
+        ci = se3.inverse_elementwise(c)
+        x_init = mul(mul(ci, se3.project_se2_elementwise(mul(mul(c, x_init), ci))), c)
+
+    def take(rows, idx):
+        k = idx.long()
+        return torch.gather(rows, 1, k[..., None].expand(k.shape + rows.shape[-1:]))
+
+    tri, ok = triangulation.triangulate_pairs_elementwise(
+        camera_matrix, x_init, take(p1_img, idx1), take(p2_img, idx2), corr_valid)
+    # Triangulated appearances come from the SECOND frame (utils.cpp:127).
+    tri_apps = take(apps2, idx2)
+    b = tri.shape[0]
+    empty = LandmarkMap.empty(capacity, apps2.shape[-1], tri.dtype, tri.device)
+    map_state = landmark_map.update(LandmarkMap(*(x.expand((b,) + x.shape) for x in empty)),
+                                    tri, tri_apps, ok)
+    lookup = matching.lookup_from_corr(matching.Correspondences(idx1, idx2, corr_valid), ok,
+                                       idx1.shape[-1])
+    return Bootstrap(x_init, se3.inverse_elementwise(x_init), tri, ok, map_state, lookup)
+
+
+def _rows_contiguous(t: torch.Tensor) -> bool:
+    """Whether each pair's rows ``t[i]`` lie contiguous (row-major strides,
+    read without making a view)."""
+    want = 1
+    for n, st in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if n != 1 and st != want:
+            return False
+        want *= n
+    return True
+
+
+def _pair_rows(t: torch.Tensor, name: str, dtype, shape, dev) -> int:
+    """Raise unless ``t`` is a ``dtype`` tensor of ``shape`` on ``dev`` whose
+    pairs' rows are contiguous (the pairs may lie apart, as the frames of a
+    (B, F, ...) stack do); returns the elements from one pair to the next."""
+    if t.device != dev or t.dtype is not dtype or t.shape != tuple(shape):
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on {dev}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    if not _rows_contiguous(t):
+        raise ValueError(f"{name}: each pair's rows must be contiguous")
+    return t.stride(0)
+
+
+_NO_MOUNT = _lib.Mount()
+
+
+def mount_arg(mount: Optional[np.ndarray]) -> _lib.Mount:
+    """The kernel's by-value mount: ``None`` for no planar projection."""
+    if mount is None:
+        return _NO_MOUNT
+    arg = _lib.Mount()
+    arg.m[:] = [float(x) for x in np.asarray(mount, np.float32).reshape(16)]
+    arg.planar = 1
+    return arg
+
+
+def bootstrap_batched_cuda(camera_matrix, idx1, idx2, corr_valid, p1_img, p2_img, mask1, mask2,
+                           apps2, capacity: int,
+                           mount: Optional[np.ndarray] = None) -> Bootstrap:
+    """Launch P1's bootstrap instance: one CTA of 256 threads a pair, every
+    output written by the launch (no other kernel, no host sync).
+    camera_matrix (3, 3) float32, idx (B, S) int32, corr_valid (B, S) bool,
+    contiguous; points (B, S, 2) float32, masks (B, S) bool, apps2 (B, S, D)
+    float32, each pair's rows contiguous; all on one card."""
+    dev = _lib.cuda_device(p1_img)
+    b, n = p1_img.shape[:2]
+    s, d = idx1.shape[1], apps2.shape[-1]
+    if n < 1 or s != n:
+        raise ValueError(f"the bootstrap takes S = N >= 1 correspondences and slots, got {s}, {n}")
+    _lib.check(camera_matrix, "camera_matrix", torch.float32, (3, 3), dev)
+    for name, t in (("idx1", idx1), ("idx2", idx2)):
+        _lib.check(t, name, torch.int32, (b, s), dev)
+    _lib.check(corr_valid, "corr_valid", torch.bool, (b, s), dev)
+    strides = [_pair_rows(p1_img, "p1_img", torch.float32, (b, n, 2), dev),
+               _pair_rows(p2_img, "p2_img", torch.float32, (b, n, 2), dev),
+               _pair_rows(mask1, "mask1", torch.bool, (b, n), dev),
+               _pair_rows(mask2, "mask2", torch.bool, (b, n), dev),
+               _pair_rows(apps2, "apps2", torch.float32, (b, n, d), dev)]
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = Bootstrap(
+        x_init=torch.empty((b, 4, 4), **f32), history=torch.empty((b, 4, 4), **f32),
+        tri_points=torch.empty((b, s, 3), **f32),
+        tri_valid=torch.empty((b, s), dtype=torch.bool, device=dev),
+        map=LandmarkMap(points=torch.empty((b, capacity, 3), **f32),
+                        appearances=torch.empty((b, capacity, d), **f32),
+                        valid=torch.empty((b, capacity), dtype=torch.bool, device=dev),
+                        count=torch.empty((b,), dtype=torch.int32, device=dev)),
+        point_lookup=torch.empty((b, s), dtype=torch.int32, device=dev))
+    if b == 0:
+        return out
+    outs = (out.x_init, out.history, out.tri_points, out.tri_valid, *out.map, out.point_lookup)
+    _lib.launch("eight_point", "vo_eight_point_seed", dev,
+                *(t.data_ptr() for t in (camera_matrix, idx1, idx2, corr_valid, p1_img, p2_img,
+                                         mask1, mask2, apps2, *outs)),
+                b, s, n, capacity, d, *strides, mount_arg(mount))
+    return out
+
+
+def bootstrap_batched(camera_matrix, idx1, idx2, corr_valid, p1_img, p2_img, mask1, mask2,
+                      apps2, capacity: int, mount: Optional[np.ndarray] = None) -> Bootstrap:
+    """The two-view bootstrap of B frame pairs (module docstring, steps 1-6):
+    idx (B, S), corr_valid (B, S), points (B, S, 2), masks (B, S), the second
+    frames' appearances (B, S, D), one camera and map capacity for the batch;
+    ``mount`` (4, 4) planarizes the pose (None: not planar). A pair's outputs
+    do not depend on the batch. The kernel on CUDA tensors, the plain version
+    on the CPU's."""
+    b, s = idx1.shape
+    _lib.tally("eight_point", roofline.eight_point_model, b, s, p1_img.shape[1], None, capacity,
+               apps2.shape[-1])
+    if p1_img.is_cuda:
+        def rows(t, dt):   # pairs may lie apart (a frame of a stack); rows contiguous
+            t = t.to(dt)
+            return t if _rows_contiguous(t) else t.contiguous()
+
+        c = lambda t, dt: t.to(dt).contiguous()   # noqa: E731
+        return bootstrap_batched_cuda(
+            c(camera_matrix, torch.float32), c(idx1, torch.int32), c(idx2, torch.int32),
+            c(corr_valid, torch.bool), rows(p1_img, torch.float32), rows(p2_img, torch.float32),
+            rows(mask1, torch.bool), rows(mask2, torch.bool), rows(apps2, torch.float32),
+            capacity, mount)
+    return bootstrap_batched_plain(camera_matrix, idx1, idx2, corr_valid, p1_img, p2_img, mask1,
+                                   mask2, apps2, capacity, mount)

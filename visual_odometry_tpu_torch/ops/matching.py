@@ -89,3 +89,18 @@ def match_appearances(app1, mask1, app2, mask2, radius: float = 0.1,
         app1[None], mask1[None], app2[None], mask2[None], radius, backend
     )
     return Correspondences(*(x[0] for x in corr))
+
+
+def lookup_from_corr(corr: Correspondences, tri_ok, n_slots: int) -> torch.Tensor:
+    """(meas idx in frame 2) -> correspondence slot, first-wins (vo_complete.cpp:55-63);
+    (S,) rows or (B, S) stacks, each row on its own."""
+    dev = corr.idx2.device
+    lead = corr.idx2.shape[:-1]
+    big = n_slots + 1
+    live = (corr.valid & tri_ok).reshape(-1, n_slots)
+    slots = torch.arange(n_slots, dtype=torch.int64, device=dev).expand_as(live)
+    # Dead correspondences go to a spare column n_slots, dropped after.
+    target = torch.where(live, corr.idx2.reshape(-1, n_slots).long(), n_slots)
+    lut = torch.full((live.shape[0], n_slots + 1), big, dtype=torch.int64, device=dev)
+    lut = lut.scatter_reduce(1, target, slots, reduce="amin")[:, :n_slots]
+    return torch.where(lut <= n_slots, lut, -1).to(torch.int32).reshape(lead + (n_slots,))

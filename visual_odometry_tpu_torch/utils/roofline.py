@@ -300,18 +300,37 @@ EIGHT_POINT_ROW_OPS = 13
 EIGHT_POINT_SOLVE_FP64_OPS = 4 * 729 // 3 + 729 // 3 + 3 * 81
 
 
-def eight_point_model(b: int, s: int, n: int, live: "int | None" = None) -> KernelModel:
+# The bootstrap instance's triangulation a slot (triangulate_pairs_elementwise
+# on float32 points): both rays in float32 (12 operations each, the three
+# finiteness tests 3), the rest in float64 (the vote's 54 less its rays' 12).
+SEED_TRI_FP32_OPS = 27
+SEED_TRI_FP64_OPS = 42
+
+
+def eight_point_model(b: int, s: int, n: int, live: "int | None" = None, capacity: int = 0,
+                      d: int = 0) -> KernelModel:
     """P1, the eight-point pose of B frame pairs of S correspondences over N
     slots a frame, ``live`` of them valid (all by default), every operation
     in float64 (a multiply-add one): the masked max of both frames (2 N
     compares a frame), a design row and its 45 normal-matrix products a live
     correspondence, the null vector, and the four candidates' votes over all
-    S; indices, validity, points and masks in, a pose a pair out."""
+    S; indices, validity, points and masks in, a pose a pair out. With a map
+    ``capacity`` (the bootstrap instance) also the seed: the second frames'
+    appearances (B, N, D) in; the triangulation of every slot (its points and
+    flags out), the B seeded maps of ``capacity`` rows (points, D
+    appearances, a flag) and their counts, the (B, S) lookup and the
+    history out."""
     live = b * s if live is None else live
-    return KernelModel(name="eight_point", tc_flops=0.0, fp32_ops=0.0,
-                       hbm_bytes=b * (9.0 * s + 18.0 * n + 64.0) + 36.0,
+    hbm = b * (9.0 * s + 18.0 * n + 64.0) + 36.0
+    fp32 = 0.0
+    if capacity:
+        hbm += b * (4.0 * n * d + 13.0 * s + capacity * (4.0 * (3 + d) + 1.0) + 4.0 + 4.0 * s
+                    + 64.0)
+        fp32 = b * s * float(SEED_TRI_FP32_OPS)
+    return KernelModel(name="eight_point", tc_flops=0.0, fp32_ops=fp32, hbm_bytes=hbm,
                        fp64_ops=b * (4.0 * n + s * 4.0 * EIGHT_POINT_VOTE_OPS
-                                     + EIGHT_POINT_SOLVE_FP64_OPS)
+                                     + EIGHT_POINT_SOLVE_FP64_OPS
+                                     + (s * SEED_TRI_FP64_OPS if capacity else 0.0))
                        + live * (EIGHT_POINT_ROW_OPS + 45.0))
 
 
