@@ -101,9 +101,8 @@ bootstraps can be compared.
 path B (``run_sequence``, 1,024 slots x 512 frames), path D (its planar
 form), the step form (path B's first 34 frames, ``scan_backend="step"``),
 path H (``run_sequence_chunked``, 4 chunks) and path E (the serving batch,
-64 x 128 x 128, and its planar batch of 8). For each: every ``profiling.stage``'s ms (host clock ended
-by a sync, median of ``--reps`` after a warm-up; ``bootstrap_init`` among
-them), then one profiled call after a profiler warm-up step: its wall ms,
+64 x 128 x 128, and its planar batch of 8). For each, after ``--reps`` + 1
+warm-up calls, one profiled call after a profiler warm-up step: its wall ms,
 the device's busy share and P1's device ms and launches; and the SHA-256 of
 the trajectory and map (path E: also its per-frame outputs), which must be
 the same in both checkouts. Also the SHA-256 of ``initialize_batched``'s
@@ -501,7 +500,7 @@ def _phases(reps: int) -> dict:
     for name in DIAG_VARIANTS:
         lib = ctypes.CDLL(os.path.join(DIAG_DIR, name + ".so"))
         fn = lib.vo_track_frames
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         outs = tuple(torch.empty_like(x) for x in ref)
 
         def run():
@@ -708,7 +707,7 @@ def _bootstrap(reps: int) -> dict:
     import chip_smoke   # the worker's own root is first on sys.path
     from visual_odometry_tpu_torch.models import pipeline
     from visual_odometry_tpu_torch.parallel import multiseq, posegraph
-    from visual_odometry_tpu_torch.utils import profiling, synthetic
+    from visual_odometry_tpu_torch.utils import synthetic
     from visual_odometry_tpu_torch.utils.config import DEFAULT_CONFIG, VOConfig
     from visual_odometry_tpu_torch.utils.roofline import device_events
 
@@ -733,11 +732,8 @@ def _bootstrap(reps: int) -> dict:
         "path_e_planar_8": lambda: multiseq.run_sequences_batched(camera, planar_e, *seq_e8)}
     out = {}
     for name, fn in paths.items():
-        with profiling.stage_times() as timer:
-            for _ in range(reps + 1):
-                result = fn()
-        row = {"stages_ms": {k: 1e3 * statistics.median(v[1:])
-                             for k, v in timer.samples.items()}}
+        for _ in range(reps + 1):
+            result = fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
@@ -751,7 +747,7 @@ def _bootstrap(reps: int) -> dict:
             prof.step()
         on_card = device_events(prof)
         p1 = [e.time_range.elapsed_us() for e in on_card if "eight_point" in e.name]
-        row.update(wall_ms=1e3 * wall,
+        row = dict(wall_ms=1e3 * wall,
                    busy_share=sum(e.time_range.elapsed_us() for e in on_card) / 1e6 / wall,
                    p1_device_ms=sum(p1) / 1e3, p1_launches=len(p1),
                    sha=_sha(_flat_tensors(result)))

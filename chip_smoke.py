@@ -143,12 +143,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      {"path_j": ...} holds the rows (wall times of ranks sharing one card:
      no scaling figure), each world's seconds and staged bytes.
 ``python3 chip_smoke.py --stages`` instead runs the entry points of paths B, C,
-D, E and H and one sparse-BA step of path F(2) in each layout inside
-``profiling.stage_times`` and prints the time of each step the
-pipeline itself marks (ended by a sync, median of 5), then each path's kernel
-times and device-busy share under torch.profiler, each stage's host time by
-PyTorch operator and CUDA runtime call, and what a stage sample right after
-a long device wait holds (after_wait_report); no result line.
+D, E and H and one sparse-BA step of path F(2) in each layout and prints,
+for one call of each, the host waits the pipeline counts by site
+(``profiling.host_waits``), then under torch.profiler the kernel times, the
+device-busy share and each ``vo/`` stage's host time by PyTorch operator and
+CUDA runtime call; no result line.
 
 The launch counters are zeroed right before each path and read right after;
 every kernel of a path must have launched in it. The last lines are the
@@ -401,7 +400,7 @@ def compare_frame_kernel(name, args, plain_frames, device, table, track):
     planar = bool(args[-1])
     plain_frames = min(plain_frames, args[3].idx.shape[0])
     short = head_frames(args, plain_frames)
-    kp = track(*short)[0]
+    kp, *_, k_rounds = track(*short)
     rounds = []
     pp, plain_ms = timed_call(
         lambda: frame_kernel.track_frames_plain(*short, rounds_out=rounds)[0], device)
@@ -410,12 +409,13 @@ def compare_frame_kernel(name, args, plain_frames, device, table, track):
     err = float((kp - pp).abs().max())
     tol = GN_POSE_TOL if planar else K4_POSE_TOL
     require(err <= tol, f"{label}: poses differ by {err} > {tol}")
+    require(k_rounds.tolist() == rounds, f"{label}: GN rounds differ from the plain version's")
     ms = time_ms(lambda: track(*args), device, 3)
     ms_short = time_ms(lambda: track(*short), device, 3)
 
     f, depth, s = args[3].idx.shape
-    # The kernel does not report its round count; the plain version's mean
-    # over the compared frames stands for the whole depth.
+    # The rounds a frame over the compared frames (the kernel's, equal to the
+    # plain version's) stand for the whole depth.
     rounds_per_frame = sum(rounds) / len(rounds)
     table[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        **roofline_bound(roofline.frame_model(f, s, depth, rounds_per_frame, planar),
@@ -2176,60 +2176,15 @@ def stage_host_breakdown(prof, top: int = 8) -> dict:
     return out
 
 
-def after_wait_report(device, reps: int = 20, waits_ms=(0.0, 27.0)) -> dict:
-    """What a stage sample right after a long device wait measures. For each
-    wait (27 ms is K4's time on path B), the card first sleeps that long and
-    the host waits for it in a sync, as the stage timer's sync after
-    ``frame_loop`` does; then, on the host clock (ms, medians of ``reps``):
-    ``python_ms``, a fixed pure-Python loop; ``call_ms``, K3 at path B's
-    appearance shape with no sync; ``call_sync_ms``, the same call ended by a
-    sync (what the ``appearance_gathers`` sample holds)."""
-    import torch
-
-    from visual_odometry_tpu_torch.ops.kernels import gather_kernel
-
-    rng = np.random.default_rng(0)
-    src = torch.from_numpy(rng.normal(size=(510, 1024, 10)).astype(np.float32)).to(device)
-    idx = torch.from_numpy(rng.integers(0, 1024, (510, 1024)).astype(np.int32)).to(device)
-    cycles = 10_000_000
-    _, sleep_ms = timed_call(lambda: torch.cuda._sleep(cycles), device)
-
-    def busy():
-        return sum(range(2000))
-
-    steps = {"python_ms": busy,
-             "call_ms": lambda: gather_kernel.gather_rows(src, idx),
-             "call_sync_ms": lambda: (gather_kernel.gather_rows(src, idx), sync(device))}
-    out = {"card_sleep_cycles_per_ms": cycles / sleep_ms}
-    for wait in waits_ms:
-        row = {}
-        for key, fn in steps.items():
-            times = []
-            for _ in range(reps):
-                if wait:
-                    torch.cuda._sleep(int(wait * cycles / sleep_ms))
-                sync(device)
-                t0 = time.perf_counter()
-                fn()
-                times.append(1e3 * (time.perf_counter() - t0))
-            row[key] = statistics.median(times)
-        out[f"after_{wait:g}_ms_wait"] = row
-    return out
-
-
 def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1 << 20,
                  reps: int = 5) -> dict:
-    """Stage times of run_sequence on path B's and path D's inputs and of
-    relocalize_frame on path C's: the entry points themselves, run inside
-    ``profiling.stage_times`` so that each step the pipeline wraps in
-    ``profiling.stage`` is sampled on the host clock and ended by a sync (ms,
-    median of ``reps`` after one warm-up). Then two more calls of each under
-    torch.profiler, the first its warm-up step, give the time of each of the
-    port's kernels and the device-busy share of the wall time (without the
-    warm-up step the profiler saw no K7 launch in path C's call, which comes
-    after a dozen profiled calls in one process), and a last one, profiled with the
-    stage syncs on, where each stage's host time goes. ``after_wait_report``
-    closes it."""
+    """Where the time of run_sequence on path B's and path D's inputs, and of
+    relocalize_frame on path C's, goes: after ``reps`` warm-up calls, the host
+    waits of one call by site (``profiling.host_waits``), then two more calls
+    under torch.profiler, the first its warm-up step (without it the profiler
+    saw no K7 launch in path C's call, which comes after a dozen profiled calls
+    in one process): the time of each of the port's kernels, the device-busy
+    share of the wall time, and where each ``vo/`` stage's host time goes."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from visual_odometry_tpu_torch.models import pipeline
@@ -2243,13 +2198,13 @@ def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1
            "picp_linearize", "eight_point")   # csrc/*.cu name their kernels <this>_kernel
 
     def measured(fn):
-        with profiling.stage_times() as timer:
-            for _ in range(reps + 1):
-                fn()
-        out = {"stages_ms": {k: 1e3 * statistics.median(v[1:])
-                             for k, v in timer.samples.items()}}
-        require(out["stages_ms"], "stages: the entry point ran no profiling.stage block")
+        for _ in range(reps):
+            fn()
         sync(device)
+        profiling.reset_host_waits()
+        fn()
+        sync(device)
+        out = {"host_waits": dict(profiling.host_waits)}
         # A warm-up step of the profiler first: the profiled call is the second.
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
@@ -2272,11 +2227,8 @@ def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1
                     row["device_ms"] += e.time_range.elapsed_us() / 1e3
                     row["launches"] += 1
         out.update(kernels=kernels, device_busy_ms=busy_us / 1e3, wall_ms=1e3 * wall,
-                   busy_share=busy_us / 1e6 / wall)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            with profiling.stage_times():
-                fn()
-        out["host_breakdown"] = stage_host_breakdown(prof)
+                   busy_share=busy_us / 1e6 / wall, host_breakdown=stage_host_breakdown(prof))
+        require(out["host_breakdown"], "stages: the entry point ran no profiling.stage block")
         return out
 
     camera = synthetic.deep_camera(device=device)
@@ -2310,7 +2262,6 @@ def stage_report(device, frames: int = 512, slots: int = 1024, map_rows: int = 1
                        matcher_precision=precision)
         report["path_c_" + precision] = measured(
             lambda: pipeline.relocalize_frame(camera, cfg, map_state, frame, x0))
-    report["after_device_wait"] = after_wait_report(device)
     return report
 
 

@@ -6,8 +6,9 @@ same plan, tracks the chosen chunks (``pipeline._track`` on each chunk's
 frames, as ``run_sequence_chunked`` tracks them) and the same frames
 serially, in both packages, and prints each run's GN rounds a frame: the JAX
 package's through its ``xla`` scan (the while-loop of its ``picp.solve``,
-counted), the port's through the plain version of K4 (the kernels run the
-same rounds: they agree with it bit for bit). The JAX bootstrap runs in
+counted), the port's as its plain version of K4 reports them in
+``FrameOutput.gn_rounds`` (the kernels report the same rounds: they agree
+with it bit for bit). The JAX bootstrap runs in
 float64 as the port's does (``test_torch_pipeline.jax_bootstrap_in_double``);
 ``--float32-bootstrap`` gives the JAX package's own.
 
@@ -42,7 +43,7 @@ from visual_odometry_tpu.ops import picp as jpicp  # noqa: E402
 from visual_odometry_tpu.utils import synthetic as jsyn  # noqa: E402
 from visual_odometry_tpu.utils.config import VOConfig as JaxConfig  # noqa: E402
 from visual_odometry_tpu_torch.models import pipeline as tpipe  # noqa: E402
-from visual_odometry_tpu_torch.ops.kernels import frame_kernel, matcher_kernel  # noqa: E402
+from visual_odometry_tpu_torch.ops.kernels import matcher_kernel  # noqa: E402
 from visual_odometry_tpu_torch.parallel import posegraph  # noqa: E402
 from visual_odometry_tpu_torch.utils import synthetic as tsyn  # noqa: E402
 from visual_odometry_tpu_torch.utils.config import VOConfig  # noqa: E402
@@ -125,25 +126,14 @@ def jax_rounds(points, appearances, masks, slots: int, double_bootstrap: bool = 
 
 def port_rounds(points, appearances, masks, slots: int):
     """The port's ``_track`` on these frames through the plain versions:
-    (GN rounds a tracked frame (F-2,), poses (F-2, 4, 4))."""
-    rounds = []
-    loop = frame_kernel._gn_loop_plain
-
-    def counting(*args, **kw):
-        args = list(args)
-        if len(args) > 11:
-            args[11] = rounds
-        else:
-            kw["rounds_out"] = rounds
-        return loop(*args, **kw)
-
+    (its GN rounds a tracked frame, ``FrameOutput.gn_rounds`` (F-2,), poses
+    (F-2, 4, 4))."""
     cfg = VOConfig(n_slots=slots, map_capacity=2 * slots)
     t = [torch.from_numpy(np.ascontiguousarray(x)) for x in (points, appearances, masks)]
     ids = torch.full(t[2].shape, -1, dtype=torch.int32)
-    with _swapped(frame_kernel, "_gn_loop_plain", counting), \
-            _swapped(matcher_kernel, "match_pairs_plain", _sliced_matcher()):
+    with _swapped(matcher_kernel, "match_pairs_plain", _sliced_matcher()):
         _, outs, _ = tpipe._track(tsyn.deep_camera(), cfg, *t, ids, False)
-    return np.asarray(rounds), outs.pose.numpy()
+    return outs.gn_rounds.numpy(), outs.pose.numpy()
 
 
 def _summary(rounds, cap: int) -> dict:

@@ -288,7 +288,7 @@ def test_fold_map_batched_equals_each_sequence():
     apps = init.apps[:, None].expand(b, f, S, d).contiguous()
     outs = tpipe.FrameOutput(*([None] * 5), tri_apps=apps,
                              tri_valid=torch.from_numpy(rng.uniform(size=(b, f, S)) > 0.5),
-                             join_overflow=None, tri_points=None)
+                             join_overflow=None, tri_points=None, gn_rounds=None)
     tri_world = torch.from_numpy(rng.normal(size=(b, f, S, 3)).astype(np.float32))
     cfg = VOConfig(n_slots=S, map_capacity=96)
     got = tpipe._fold_map(cfg, init, tri_world, outs)

@@ -21,8 +21,12 @@ checks hold their own tolerances (the JAX package's), and utils/roofline's
 fractions lie in (0, 1].
 """
 
+import ast
 import ctypes
 import subprocess
+import time
+import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -38,7 +42,7 @@ from visual_odometry_tpu_torch.ops.kernels import (
     epipolar_kernel, frame_kernel, gather_kernel, matcher_kernel, picp_kernel, segsum_kernel,
 )
 from visual_odometry_tpu_torch.parallel import multiseq, posegraph, sparse_ba
-from visual_odometry_tpu_torch.utils import roofline, selfcheck, synthetic
+from visual_odometry_tpu_torch.utils import profiling, roofline, selfcheck, synthetic
 from visual_odometry_tpu_torch.utils.config import VOConfig
 from visual_odometry_tpu_torch.utils.convert import to_device
 
@@ -223,14 +227,16 @@ def test_track_frames_kernel_equals_plain(dev, slots, opts):
               min_iterations=opts.get("min_iterations", 1))
     call = (opts["iterations"], opts.get("kt", 1e4), 1.0, opts["tol"])
     _lib.reset_launches()
-    got = frame_kernel.track_frames(*args, *call, **kw)
+    rounds = []
+    got = frame_kernel.track_frames(*args, *call, rounds_out=rounds, **kw)
     assert _lib.launches["track_frames"] == 1
-    ref = frame_kernel.track_frames(*args, *call, backend="torch", **kw)
+    ref = frame_kernel.track_frames(*args, *call, backend="torch", rounds_out=rounds, **kw)
     err = float((got[0] - ref[0]).abs().max())
     print(f"K4 kernel vs plain, S={slots} {opts}: max |dpose| = {err}")
     assert err <= 1e-5
     assert torch.equal(got[2], ref[2])
     assert torch.equal(got[3][:, 2:], ref[3][:, 2:])
+    assert rounds[0].dtype == torch.int32 and torch.equal(rounds[0], rounds[1])
 
 
 def test_kernels_reject_bad_inputs(dev):
@@ -290,14 +296,16 @@ def test_track_frames_planar_kernel_equals_plain(dev, slots, opts):
               cam_in_robot=_mount(dev))
     call = (opts["iterations"], 1e4, 1.0, opts["tol"])
     _lib.reset_launches()
-    got = frame_kernel.track_frames(*args, *call, **kw)
+    rounds = []
+    got = frame_kernel.track_frames(*args, *call, rounds_out=rounds, **kw)
     assert _lib.launches["track_frames_planar"] == 1 and _lib.launches["track_frames"] == 0
-    ref = frame_kernel.track_frames(*args, *call, backend="torch", **kw)
+    ref = frame_kernel.track_frames(*args, *call, backend="torch", rounds_out=rounds, **kw)
     err = float((got[0] - ref[0]).abs().max())
     print(f"K5 kernel vs plain, S={slots} {opts}: max |dpose| = {err}")
     assert bool(torch.isfinite(got[0]).all()) and err <= 1e-5
     assert torch.equal(got[2], ref[2])
     assert torch.equal(got[3][:, 2:], ref[3][:, 2:])
+    assert torch.equal(rounds[0], rounds[1])
 
 
 def _solve_case(dev, n, planar, seed=0):
@@ -345,9 +353,11 @@ def test_picp_solve_kernel_equals_plain(dev, n, planar, tol, min_inl):
     cam, fn, head, name = _k6(dev, planar)
     args = head + (world, uv, w, 12, 1e4, 1.0, tol)
     _lib.reset_launches()
-    pose, stats = fn(*args, min_num_inliers=min_inl)
+    rounds = []
+    pose, stats = fn(*args, min_num_inliers=min_inl, rounds_out=rounds)
     assert _lib.launches[name] == 1
-    pose_p, stats_p = fn(*args, min_num_inliers=min_inl, backend="torch")
+    pose_p, stats_p = fn(*args, min_num_inliers=min_inl, backend="torch", rounds_out=rounds)
+    assert rounds[0].dtype == torch.int32 and int(rounds[0]) == rounds[1]
     err = float((pose - pose_p).abs().max())
     print(f"K6 {name} N={n} geometry {picp_kernel.solve_geometry(n)} tol={tol} "
           f"min_inl={min_inl}: max |dpose| = {err}")
@@ -738,8 +748,8 @@ def _k8_args(dev, count, frames, slots, planar):
 @pytest.mark.parametrize("planar", [False, True])
 @pytest.mark.parametrize("count,slots", [(5, 64), (3, 200), (2, 512), (4, 1024)])
 def test_track_frames_batched_kernel_equals_single_launches(dev, planar, count, slots):
-    """K8 per sequence against K4/K5 launched alone: every output bit for bit;
-    and against its plain version."""
+    """K8 per sequence against K4/K5 launched alone: every output bit for bit,
+    GN rounds included; and against its plain version, whose rounds it counts."""
     batched, singles = _k8_args(dev, count, 12, slots, planar)
     name = "track_frames_batched_planar" if planar else "track_frames_batched"
     _lib.reset_launches()
@@ -749,11 +759,127 @@ def test_track_frames_batched_kernel_equals_single_launches(dev, planar, count, 
         alone = frame_kernel.track_frames_cuda(*a)
         for g, x in zip(got, alone):
             assert torch.equal(g[i], x)
-    ref = frame_kernel.track_frames_batched_plain(*batched)
+    rounds = []
+    ref = frame_kernel.track_frames_batched_plain(*batched, rounds_out=rounds)
     err = float((got[0] - ref[0]).abs().max())
     print(f"K8 kernel vs plain, planar={planar} N={count} S={slots}: max |dpose| = {err}")
     assert err <= 1e-5
     assert torch.equal(got[2], ref[2])
+    assert got[4].tolist() == rounds
+
+
+def test_fleet_gn_rounds_equal_the_plain_loops(dev):
+    """At the fleet cell's shape (64 sequences of 128 slots, here 8 frames),
+    ``FrameOutput.gn_rounds`` of the batch-aware program from K8 equals the
+    plain K8's count (``scan_backend="torch"``) frame by frame."""
+    seqs = [synthetic.generate_tracking_sequence(np.random.default_rng(100 + i), 8, 128,
+                                                 seed_motion=1.0 + 0.05 * i)
+            for i in range(64)]
+    tensors = tuple(torch.from_numpy(np.stack([q[k] for q in seqs])).to(dev) for k in range(3))
+    camera = synthetic.deep_camera(device=dev)
+    cfg = VOConfig(n_slots=128, map_capacity=1024)
+    _lib.reset_launches()
+    _, _, outs = multiseq.run_sequences_batched(camera, cfg, *tensors)
+    assert _lib.launches["track_frames_batched"] == 1
+    _, _, plain = multiseq.run_sequences_batched(camera, cfg.replace(scan_backend="torch"),
+                                                 *tensors)
+    assert _lib.launches["track_frames_batched"] == 1
+    assert outs.gn_rounds.shape == (64, 6) and outs.gn_rounds.dtype == torch.int32
+    assert torch.equal(outs.gn_rounds, plain.gn_rounds)
+    assert float((outs.pose - plain.pose).abs().max()) <= 1e-5
+
+
+def _host_wait_blocks():
+    """(file, first line, last line) of every ``with host_wait(...)`` block
+    of the package's sources."""
+    blocks = []
+    for path in Path(pipeline.__file__).resolve().parents[1].rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.With) and any(
+                    isinstance(i.context_expr, ast.Call)
+                    and getattr(i.context_expr.func, "id", None) == "host_wait"
+                    for i in node.items):
+                blocks.append((str(path), node.lineno, node.end_lineno))
+    return blocks
+
+
+@pytest.mark.parametrize("cell", ["ref128.fleet64", "dense1024.seq512", "ref128.single"])
+def test_every_sync_of_the_main_path_is_a_host_wait(dev, cell):
+    """A benchmark cell's call (``vobench/``: its entry, configuration and
+    traffic) under ``torch.cuda.set_sync_debug_mode("warn")``: every
+    synchronizing call that ``run_sequence`` / ``run_sequences_batched`` make
+    lies in a ``profiling.host_wait`` block of the package, and the host-wait
+    counter is the warnings plus ``torch.unique``'s wait, which the debug
+    mode does not see (test_unique_waits_for_the_card)."""
+    from vobench import harness
+
+    c = harness.cell(cell)
+    c.traffic["pool_calls"] = 2
+    pool = harness.make_pool(c, 3_000_000_019, dev)
+    entry = harness.make_entry(c, pool, dev)
+    entry(0)
+    torch.cuda.synchronize()
+    blocks = _host_wait_blocks()
+    package = str(Path(pipeline.__file__).resolve().parents[1])
+    seen, outside = [], []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        frame = [f for f in traceback.extract_stack()[:-1]
+                 if f.filename.startswith(package)][-1]
+        seen.append(f"{Path(frame.filename).name}:{frame.lineno}")
+        if not any(frame.filename == p and lo <= frame.lineno <= hi for p, lo, hi in blocks):
+            outside.append(seen[-1])
+
+    profiling.reset_host_waits()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            entry(1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    waits = dict(profiling.host_waits)
+    print(f"{cell}: {len(seen)} synchronizing calls {sorted(seen)}; host waits {waits}")
+    assert seen and not outside
+    assert sum(waits.values()) == len(seen) + waits["map_fold.unique"]
+
+
+def test_unique_waits_for_the_card(dev):
+    """``torch.unique(dim=0)`` reads its group count back through a stream
+    sync of its own, which the sync debug mode does not flag: the host leaves
+    it only after the work queued before it, as it leaves an elementwise op
+    at once."""
+    keys = torch.randint(0, 50, (4096, 3), dtype=torch.int32, device=dev)
+    torch.unique(keys, dim=0, return_inverse=True)
+    torch.cuda.synchronize()
+    cycles = 100_000_000
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+    sleep_s = time.perf_counter() - t0
+
+    def after_sleep(fn):
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return host_s
+
+    assert after_sleep(lambda: keys + 1) < 0.2 * sleep_s
+    assert after_sleep(lambda: torch.unique(keys, dim=0, return_inverse=True)) > 0.8 * sleep_s
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            torch.unique(keys, dim=0, return_inverse=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert not [w for w in caught if "called a synchronizing" in str(w.message)]
 
 
 def test_track_frames_batched_dead_sequence(dev):

@@ -186,38 +186,6 @@ def test_chip_smoke_names_every_kernel():
     assert len(replaced) == 13
 
 
-def test_stage_times_samples_the_entry_points_own_steps():
-    """``profiling.stage_times`` collects one sample a call for each step the
-    pipeline marks with ``profiling.stage``, for run_sequence in the fused and
-    the frame_step form and for relocalize_frame, and nothing outside it."""
-    import numpy as np
-
-    from visual_odometry_tpu_torch.models import pipeline
-    from visual_odometry_tpu_torch.utils import profiling, synthetic
-    from visual_odometry_tpu_torch.utils.config import VOConfig
-
-    pts, apps, masks = (torch.from_numpy(x) for x in
-                        synthetic.generate_tracking_sequence(np.random.default_rng(0), 8, 64))
-    camera, cfg = synthetic.deep_camera(), VOConfig(n_slots=64, map_capacity=128)
-    with profiling.stage_times() as timer:
-        traj, map_state, _ = pipeline.run_sequence(camera, cfg, pts, apps, masks)
-        pipeline.run_sequence(camera, cfg.replace(scan_backend="step"), pts, apps, masks)
-        frame = pipeline.FrameData(pts[3], apps[3], masks[3],
-                                   torch.full((64,), -1, dtype=torch.int32))
-        pipeline.relocalize_frame(camera, cfg, map_state, frame, torch.eye(4))
-    counts = {k: len(v) for k, v in timer.samples.items()}
-    assert counts == {
-        "bootstrap_match": 2, "bootstrap_init": 2, "batched_match": 2, "join_chains": 1,
-        "pixel_gathers": 1, "frame_loop": 1, "appearance_gathers": 1, "frame_step_loop": 1,
-        "chains_and_transform": 2, "map_fold": 2, "overflow_check": 2,
-        "map_match": 1, "radius_and_gather": 1, "solve": 1,
-    }
-    assert all(x >= 0.0 for v in timer.samples.values() for x in v)
-    pipeline.run_sequence(camera, cfg, pts, apps, masks)      # outside: no new sample
-    assert {k: len(v) for k, v in timer.samples.items()} == counts
-    assert bool(torch.isfinite(traj).all())
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     """``profiling.trace`` writes the block's torch.profiler trace into the
     directory, with the pipeline's ``vo/<stage>`` ranges in it; where it cannot

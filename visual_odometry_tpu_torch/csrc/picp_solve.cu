@@ -6,10 +6,11 @@
 // intrinsics K (3, 3), the start pose (4, 4; its first 12 floats are [R|t]),
 // z_near, z_far, cols and rows (one float each), planar: the camera mount
 // [R|t] and its rigid inverse (24 floats), world points (N, 3), measurements
-// (N, 2) and weights (N,); the knobs by value. Output: 19 floats, the pose
+// (N, 2) and weights (N,); the knobs by value. Output: 20 floats, the pose
 // (4, 4) row-major, chi_in and chi_out of the last round, then its inlier
-// count as an int32; not the TPU kernel's padded (8, 128) tile. No parameter
-// row is packed on the host: every input is read where the caller keeps it.
+// count and the number of GN rounds run, each as an int32; not the TPU
+// kernel's padded (8, 128) tile. No parameter row is packed on the host:
+// every input is read where the caller keeps it.
 //
 // A dead slot (weight <= 0) is sanitized here, as ops/picp.solve did before
 // the launch: its lane takes the world point (1, 1, 1) and the measurement
@@ -162,6 +163,7 @@ __global__ void __launch_bounds__(K6_MAX_THREADS)
     out[16] = s_gn.ctl.chi_in;
     out[17] = s_gn.ctl.chi_out;
     reinterpret_cast<int*>(out)[18] = static_cast<int>(s_gn.ctl.n_in);
+    reinterpret_cast<int*>(out)[19] = s_gn.ctl.it;
   }
 }
 

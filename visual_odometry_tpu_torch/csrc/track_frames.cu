@@ -15,7 +15,8 @@
 //      3-DoF increment conjugated through the camera mount;
 //   3. mid-point triangulation in previous-frame coordinates with the
 //      determinant and finiteness guards (utils.cpp:36-76);
-//   4. the pose, the stats row [chi_in, chi_out, n_in, sum(weight)] and the
+//   4. the pose, the stats row [chi_in, chi_out, n_in, sum(weight)], the
+//      number of GN rounds the frame ran (one int32 store) and the
 //      triangulation rows.
 //
 // Bound on this card: latency, not bytes or FLOPs. The frames and the GN
@@ -116,8 +117,10 @@ __device__ __forceinline__ LaneInputs load_lane(const int* __restrict__ cand_idx
 //          warm_start, min_num_inliers, K (9), K^-1 (9), initial pose 3x4 (12)]
 // and, when PLANAR, the camera mount [R|t] (12) and its inverse (12).
 // pose0: (sequences, 12) start poses; the single-sequence entries pass the
-// row's own slot, params + 28. cluster: the CTAs of one sequence (a thread
-// block cluster of that size when above 1), each taking blockDim.x lanes.
+// row's own slot, params + 28. rounds: (sequences, frames) int32, the GN
+// rounds each frame ran (GNControl::it after its loop). cluster: the CTAs of
+// one sequence (a thread block cluster of that size when above 1), each
+// taking blockDim.x lanes.
 template <bool PLANAR, int MAXT>
 __global__ void __launch_bounds__(MAXT)
     track_frames_kernel(const float* __restrict__ params, const float* __restrict__ pose0,
@@ -126,8 +129,9 @@ __global__ void __launch_bounds__(MAXT)
                         const uint8_t* __restrict__ cand_ok, const float* __restrict__ prev_al,
                         const float* __restrict__ cur_al, const uint8_t* __restrict__ corr_valid,
                         float* __restrict__ poses, float* __restrict__ tri_out,
-                        uint8_t* __restrict__ tri_ok_out, float* __restrict__ stats, int frames,
-                        int s, int depth, int num_iterations, int min_iterations, int cluster) {
+                        uint8_t* __restrict__ tri_ok_out, float* __restrict__ stats,
+                        int* __restrict__ rounds, int frames, int s, int depth,
+                        int num_iterations, int min_iterations, int cluster) {
   constexpr int NPAR = PLANAR ? NPAR_SE2 : NPAR_SE3;
   extern __shared__ float tri_buf[];  // 2 x (s, 4): x, y, z, ok — ping-pong
   __shared__ float s_par[NPAR];
@@ -156,6 +160,7 @@ __global__ void __launch_bounds__(MAXT)
     tri_out += seq * fs_all * 3;
     tri_ok_out += seq * fs_all;
     stats += seq * frames * 4;
+    rounds += seq * frames;
   }
 
   if (jl < NPAR) s_par[jl] = params[jl];
@@ -319,6 +324,7 @@ __global__ void __launch_bounds__(MAXT)
       tri_ok_out[fs + j] = ok ? 1 : 0;
     }
     float chi_in = 0.0f, chi_out = 0.0f, n_in = 0.0f;
+    int gn_rounds = 0;
     if (jl == 0) {
       float* out = poses + 16 * static_cast<long long>(f);
       for (int q = 0; q < 12; ++q) {
@@ -334,6 +340,7 @@ __global__ void __launch_bounds__(MAXT)
       chi_in = s_gn.ctl.chi_in;
       chi_out = s_gn.ctl.chi_out;
       n_in = s_gn.ctl.n_in;
+      gn_rounds = s_gn.ctl.it;
     }
     // Frame k+1 reads dst_buf and s_cpose (every CTA's rows, in a cluster),
     // and re-initializes the GN state.
@@ -350,6 +357,7 @@ __global__ void __launch_bounds__(MAXT)
       st[1] = chi_out;
       st[2] = n_in;
       st[3] = static_cast<float>(live);
+      rounds[f] = gn_rounds;
     }
     GN_STAMP(f3);
     GN_PHASE(8, f0, f1);
@@ -363,8 +371,9 @@ static int launch_track_frames(int sequences, const float* params, const float* 
                                const float* init_tri, const uint8_t* init_ok,
                                const int* cand_idx, const uint8_t* cand_ok, const float* prev_al,
                                const float* cur_al, const uint8_t* corr_valid, float* poses,
-                               float* tri_out, uint8_t* tri_ok_out, float* stats, int frames, int s,
-                               int depth, int num_iterations, int min_iterations, void* stream) {
+                               float* tri_out, uint8_t* tri_ok_out, float* stats, int* rounds,
+                               int frames, int s, int depth, int num_iterations,
+                               int min_iterations, void* stream) {
   if (frames <= 0 || sequences <= 0) return 0;
   if (s < 1 || s > 1024 || depth < 1) return static_cast<int>(cudaErrorInvalidValue);
   // The pixel rows are read as float2.
@@ -404,8 +413,8 @@ static int launch_track_frames(int sequences, const float* params, const float* 
   config.numAttrs = cluster > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(&config, kernel, params, pose0, init_tri, init_ok,
                            cand_idx, cand_ok, prev_al, cur_al, corr_valid, poses, tri_out,
-                           tri_ok_out, stats, frames, s, depth, num_iterations, min_iterations,
-                           cluster);
+                           tri_ok_out, stats, rounds, frames, s, depth, num_iterations,
+                           min_iterations, cluster);
   if (err != cudaSuccess) return static_cast<int>(err);
   return vo_launch_status();
 }
@@ -424,11 +433,12 @@ VO_EXPORT int vo_gn_phases_take(unsigned long long* host16) {
 VO_EXPORT int vo_track_frames(const float* params, const float* init_tri, const uint8_t* init_ok,
                               const int* cand_idx, const uint8_t* cand_ok, const float* prev_al,
                               const float* cur_al, const uint8_t* corr_valid, float* poses,
-                              float* tri_out, uint8_t* tri_ok_out, float* stats, int frames, int s,
-                              int depth, int num_iterations, int min_iterations, void* stream) {
+                              float* tri_out, uint8_t* tri_ok_out, float* stats, int* rounds,
+                              int frames, int s, int depth, int num_iterations,
+                              int min_iterations, void* stream) {
   return launch_track_frames<false>(1, params, params + 28, init_tri, init_ok, cand_idx, cand_ok, prev_al, cur_al,
-                                    corr_valid, poses, tri_out, tri_ok_out, stats, frames, s, depth,
-                                    num_iterations, min_iterations, stream);
+                                    corr_valid, poses, tri_out, tri_ok_out, stats, rounds, frames, s,
+                                    depth, num_iterations, min_iterations, stream);
 }
 
 // K5: params holds 64 floats (the 40 of K4, then the mount and its inverse).
@@ -436,12 +446,12 @@ VO_EXPORT int vo_track_frames_planar(const float* params, const float* init_tri,
                                      const uint8_t* init_ok, const int* cand_idx,
                                      const uint8_t* cand_ok, const float* prev_al,
                                      const float* cur_al, const uint8_t* corr_valid, float* poses,
-                                     float* tri_out, uint8_t* tri_ok_out, float* stats, int frames,
-                                     int s, int depth, int num_iterations, int min_iterations,
-                                     void* stream) {
+                                     float* tri_out, uint8_t* tri_ok_out, float* stats,
+                                     int* rounds, int frames, int s, int depth, int num_iterations,
+                                     int min_iterations, void* stream) {
   return launch_track_frames<true>(1, params, params + 28, init_tri, init_ok, cand_idx, cand_ok, prev_al, cur_al,
-                                   corr_valid, poses, tri_out, tri_ok_out, stats, frames, s, depth,
-                                   num_iterations, min_iterations, stream);
+                                   corr_valid, poses, tri_out, tri_ok_out, stats, rounds, frames, s,
+                                   depth, num_iterations, min_iterations, stream);
 }
 
 // K8: N sequences, one CTA each. params is K4's row (its pose slot is not
@@ -451,12 +461,12 @@ VO_EXPORT int vo_track_frames_batched(const float* params, const float* pose0,
                                       const int* cand_idx, const uint8_t* cand_ok,
                                       const float* prev_al, const float* cur_al,
                                       const uint8_t* corr_valid, float* poses, float* tri_out,
-                                      uint8_t* tri_ok_out, float* stats, int sequences, int frames,
-                                      int s, int depth, int num_iterations, int min_iterations,
-                                      void* stream) {
+                                      uint8_t* tri_ok_out, float* stats, int* rounds,
+                                      int sequences, int frames, int s, int depth,
+                                      int num_iterations, int min_iterations, void* stream) {
   return launch_track_frames<false>(sequences, params, pose0, init_tri, init_ok, cand_idx, cand_ok,
                                     prev_al, cur_al, corr_valid, poses, tri_out, tri_ok_out, stats,
-                                    frames, s, depth, num_iterations, min_iterations, stream);
+                                    rounds, frames, s, depth, num_iterations, min_iterations, stream);
 }
 
 // K8 planar: params is K5's row of 64 floats.
@@ -466,10 +476,10 @@ VO_EXPORT int vo_track_frames_batched_planar(const float* params, const float* p
                                              const float* prev_al, const float* cur_al,
                                              const uint8_t* corr_valid, float* poses,
                                              float* tri_out, uint8_t* tri_ok_out, float* stats,
-                                             int sequences, int frames, int s, int depth,
-                                             int num_iterations, int min_iterations,
+                                             int* rounds, int sequences, int frames, int s,
+                                             int depth, int num_iterations, int min_iterations,
                                              void* stream) {
   return launch_track_frames<true>(sequences, params, pose0, init_tri, init_ok, cand_idx, cand_ok,
                                    prev_al, cur_al, corr_valid, poses, tri_out, tri_ok_out, stats,
-                                   frames, s, depth, num_iterations, min_iterations, stream);
+                                   rounds, frames, s, depth, num_iterations, min_iterations, stream);
 }

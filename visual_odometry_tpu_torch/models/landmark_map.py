@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..ops import se3
+from ..utils.profiling import host_wait
 
 
 class LandmarkMap(NamedTuple):
@@ -119,7 +120,8 @@ def _merge_streams(points, appearances, mask, capacity: int) -> LandmarkMap:
     dev = points.device
     apps_c = (appearances + 0.0).reshape(b * t, d)      # -0.0 -> +0.0
     flat_pts = points.reshape(b * t, 3)
-    rows = torch.nonzero(mask.reshape(-1)).squeeze(1)   # live rows, sequence then time order
+    with host_wait("map_fold.nonzero"):
+        rows = torch.nonzero(mask.reshape(-1)).squeeze(1)   # live rows, sequence then time order
     out_pts = torch.zeros((b, capacity, 3), dtype=points.dtype, device=dev)
     out_apps = torch.full((b, capacity, d), float("inf"), dtype=appearances.dtype, device=dev)
     out_valid = torch.zeros((b, capacity), dtype=torch.bool, device=dev)
@@ -129,7 +131,8 @@ def _merge_streams(points, appearances, mask, capacity: int) -> LandmarkMap:
     keys = apps_c[rows].contiguous().view(torch.int32)
     if b > 1:   # one stream needs no sequence column: its groups are the same
         keys = torch.cat([(rows // t).to(torch.int32)[:, None], keys], dim=1)
-    uniq, group = torch.unique(keys, dim=0, return_inverse=True)
+    with host_wait("map_fold.unique"):
+        uniq, group = torch.unique(keys, dim=0, return_inverse=True)
     g = uniq.shape[0]
     first = torch.full((g,), b * t, dtype=torch.int64, device=dev).scatter_reduce(
         0, group, rows, reduce="amin")
@@ -138,12 +141,16 @@ def _merge_streams(points, appearances, mask, capacity: int) -> LandmarkMap:
     order = torch.argsort(first)                       # first rows are distinct
     first, last = first[order], last[order]
     owner = first // t
-    counts = torch.bincount(owner, minlength=b)
+    with host_wait("map_fold.bincount", 2):   # its bounds, read back
+        counts = torch.bincount(owner, minlength=b)
     rank = torch.arange(g, device=dev) - (torch.cumsum(counts, 0) - counts)[owner]
     keep = rank < capacity
-    at = (owner[keep], rank[keep])
-    out_pts[at] = flat_pts[last[keep]]
-    out_apps[at] = apps_c[first[keep]]
-    out_valid[at] = True
+    with host_wait("map_fold.keep", 4):       # each mask's count, read back
+        at = (owner[keep], rank[keep])
+        last_kept, first_kept = last[keep], first[keep]
+    out_pts[at] = flat_pts[last_kept]
+    out_apps[at] = apps_c[first_kept]
+    with host_wait("map_fold.valid"):         # the host's True, copied over
+        out_valid[at] = True
     return LandmarkMap(out_pts, out_apps, out_valid,
                        counts.clamp(max=capacity).to(torch.int32))

@@ -25,8 +25,9 @@ tensors and runs their plain PyTorch versions for CPU tensors.
 
 The steps of ``run_sequence``, ``continue_sequence`` and ``relocalize_frame``
 run inside ``utils.profiling.stage`` blocks: ``vo/<stage>`` ranges in a
-``torch.profiler`` trace, and wall-clock samples ended by a sync for a caller
-inside ``utils.profiling.stage_times``.
+``torch.profiler`` trace. Each call of the fused path that makes the host
+wait for the card is a ``utils.profiling.host_wait`` block: counted, and a
+``wait/<stage>.<site>`` range inside its stage's.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from ..ops import epipolar, matching, picp, picp_se2, se3, triangulation
 from ..ops.camera import Camera
 from ..ops.kernels import epipolar_kernel, frame_kernel, gather_kernel
 from ..utils.config import VOConfig
-from ..utils.profiling import stage
+from ..utils.profiling import host_wait, stage
 from . import landmark_map
 from .landmark_map import LandmarkMap
 
@@ -78,6 +79,7 @@ class FrameOutput(NamedTuple):
     tri_apps: torch.Tensor         # (F, S, D) triangulated appearances
     tri_valid: torch.Tensor        # (F, S) bool
     join_overflow: torch.Tensor    # (F,) int32 lanes past the join-chain depth
+    gn_rounds: torch.Tensor        # (F,) int32 GN rounds the frame's solve ran
 
 
 class InitTriangulation(NamedTuple):
@@ -136,7 +138,7 @@ def _match(config: VOConfig, use_known_da: bool, ref: FrameData,
 
 def check_join_overflow(outs: FrameOutput) -> None:
     """Raise :class:`FusedJoinDepthError` if any frame overflowed the chains."""
-    with stage("overflow_check"):
+    with stage("overflow_check"), host_wait("overflow_check.fetch"):
         per_frame = outs.join_overflow.cpu().numpy().reshape(-1)
     total = int(per_frame.sum())
     if total:
@@ -308,14 +310,15 @@ def frame_step(
                  min_num_inliers=config.min_num_inliers,
                  min_iterations=config.gn_min_iterations)
     solver_cam = picp.with_pose(camera, start)
+    rounds = []
     if config.planar:
         solved_cam, stats = picp_se2.solve_se2(
             solver_cam, world_points, measured, solver_weight, config.gn_iterations,
-            cam_in_robot=config.planar_mount(), **knobs)
+            cam_in_robot=config.planar_mount(), rounds_out=rounds, **knobs)
     else:
         solved_cam, stats = picp.solve(
             solver_cam, world_points, measured, solver_weight, config.gn_iterations,
-            backend=config.solver_backend, **knobs)
+            backend=config.solver_backend, rounds_out=rounds, **knobs)
     pose = solved_cam.world_in_camera  # frame k-1 expressed in frame k
 
     # Re-triangulate the pair (prev, curr) in prev-frame coords.
@@ -350,6 +353,7 @@ def frame_step(
         tri_apps=tri_apps,
         tri_valid=ok,
         join_overflow=torch.zeros((), dtype=torch.int32, device=pose.device),
+        gn_rounds=torch.as_tensor(rounds[0], dtype=torch.int32, device=pose.device),
     )
     return new_state, out
 
@@ -390,6 +394,7 @@ def _run_fused(camera: Camera, config: VOConfig, x_curr, tri_points, tri_valid,
     with stage("pixel_gathers"):
         prev_al = gather_kernel.gather_rows(prev.points, safe1, backend=backend)
         cur_al = gather_kernel.gather_rows(cur.points, safe2, backend=backend)
+    rounds = []
     with stage("frame_loop"):
         poses, tri_all, tri_ok_all, solver_stats = frame_kernel.track_frames(
             camera.camera_matrix, camera.params(), x_curr,
@@ -400,6 +405,7 @@ def _run_fused(camera: Camera, config: VOConfig, x_curr, tri_points, tri_valid,
             keep_outliers=config.keep_outliers, warm_start=config.warm_start,
             min_num_inliers=config.min_num_inliers, min_iterations=config.gn_min_iterations,
             backend=backend, planar=config.planar, cam_in_robot=config.planar_mount(),
+            rounds_out=rounds,
         )
     with stage("appearance_gathers"):
         tri_apps_all = gather_kernel.gather_rows(cur.appearances, safe2, backend=backend)
@@ -413,6 +419,7 @@ def _run_fused(camera: Camera, config: VOConfig, x_curr, tri_points, tri_valid,
         tri_apps=tri_apps_all,
         tri_valid=tri_ok_all,
         join_overflow=cand.overflow.sum(dim=1).to(torch.int32),
+        gn_rounds=rounds[0],
     )
 
 

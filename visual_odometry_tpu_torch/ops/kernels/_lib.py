@@ -217,13 +217,13 @@ _SIGNATURES = {
     "vo_match_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vo_join_candidates": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vo_gather_rows": [_P] * 3 + [_I] * 4 + [_L, _L, _P],
-    "vo_track_frames": [_P] * 12 + [_I] * 5 + [_P],
-    "vo_track_frames_planar": [_P] * 12 + [_I] * 5 + [_P],
+    "vo_track_frames": [_P] * 13 + [_I] * 5 + [_P],
+    "vo_track_frames_planar": [_P] * 13 + [_I] * 5 + [_P],
     "vo_picp_solve": [_P] * 10 + [_I] * 5 + [_F] * 5 + [_P],
     "vo_picp_solve_se2": [_P] * 11 + [_I] * 5 + [_F] * 5 + [_P],
     "vo_best_match": [_P] * 9 + [_I] * 5 + [_P],
-    "vo_track_frames_batched": [_P] * 13 + [_I] * 6 + [_P],
-    "vo_track_frames_batched_planar": [_P] * 13 + [_I] * 6 + [_P],
+    "vo_track_frames_batched": [_P] * 14 + [_I] * 6 + [_P],
+    "vo_track_frames_batched_planar": [_P] * 14 + [_I] * 6 + [_P],
     "vo_segment_sum": [_P, _P, _P, _P, _I, _I, _P],
     "vo_take_table": [_P, _L, _L, _P, _P, _L, _I, _I, _I, _P],
     "vo_picp_linearize": [_P] * 12 + [_I] * 3 + [_F, _F, _P],

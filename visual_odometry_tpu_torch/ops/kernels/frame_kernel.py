@@ -35,6 +35,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ...utils import roofline
+from ...utils.profiling import host_wait
 from .. import se3
 from . import _lib
 
@@ -165,9 +166,14 @@ def pack_params(camera_matrix, cam_params, x_init, kernel_threshold, damping, to
     )]
     if planar:
         host.append(mount_rows(cam_in_robot))
-    host = torch.cat(host).to(dev)
+    with host_wait("frame_loop.params"):
+        host = torch.cat(host).to(dev)
     k = camera_matrix.to(torch.float32)
-    k_inv = torch.linalg.inv(k) if k_inverse else torch.zeros_like(k)
+    if k_inverse:
+        with host_wait("frame_loop.k_inverse"):   # linalg.inv reads its status back
+            k_inv = torch.linalg.inv(k)
+    else:
+        k_inv = torch.zeros_like(k)
     return torch.cat([
         cam_params.to(torch.float32).reshape(4), host[:6], k.reshape(9), k_inv.reshape(9),
         x_init[:3, :4].to(torch.float32).reshape(12), host[6:],
@@ -508,7 +514,8 @@ def track_frames_cuda(params, init_tri, init_tri_ok, cand: JoinCandidates, prev_
                       corr_valid, num_iterations: int, min_iterations: int = 1,
                       planar: bool = False):
     """Launch K4, or K5 with ``planar``: one CTA, or a cluster of CTAs at wide
-    S, one thread per lane (S <= 1024)."""
+    S, one thread per lane (S <= 1024). Returns :func:`track_frames`'s four
+    outputs and the GN rounds each frame ran, (F,) int32."""
     f, depth, s = cand.idx.shape
     dev = _lib.cuda_device(prev_al)
     if s > 1024:
@@ -525,14 +532,15 @@ def track_frames_cuda(params, init_tri, init_tri_ok, cand: JoinCandidates, prev_
     tri = torch.empty((f, s, 3), dtype=torch.float32, device=dev)
     tri_ok = torch.empty((f, s), dtype=torch.bool, device=dev)
     stats = torch.empty((f, 4), dtype=torch.float32, device=dev)
+    rounds = torch.empty((f,), dtype=torch.int32, device=dev)
     _lib.launch(
         *(("track_frames_planar", "vo_track_frames_planar") if planar
           else ("track_frames", "vo_track_frames")), dev,
         *(t.data_ptr() for t in (params, init_tri, init_tri_ok, cand.idx, cand.ok, prev_al,
-                                 cur_al, corr_valid, poses, tri, tri_ok, stats)),
+                                 cur_al, corr_valid, poses, tri, tri_ok, stats, rounds)),
         f, s, depth, int(num_iterations), int(min_iterations),
     )
-    return poses, tri, tri_ok, stats
+    return poses, tri, tri_ok, stats, rounds
 
 
 def track_frames(
@@ -540,6 +548,7 @@ def track_frames(
     prev_al, cur_al, corr_valid, num_iterations: int, kernel_threshold, damping, tolerance,
     keep_outliers: bool = False, warm_start: bool = False, min_num_inliers=0.0,
     min_iterations: int = 1, backend: str = "auto", planar: bool = False, cam_in_robot=None,
+    rounds_out=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the whole F-frame tracking loop (the JAX ``track_frames_fused``
     contract). ``planar`` runs the conjugated-SE(2) solve with ``cam_in_robot``
@@ -548,7 +557,9 @@ def track_frames(
     (``prev_al[i] = prev_pts[i][idx1[i]]``, ``cur_al[i] = cur_pts[i][idx2[i]]``)
     and the join chains from :func:`join_candidates`. Returns poses (F, 4, 4),
     tri_points (F, S, 3), tri_valid (F, S) and stats (F, 4) =
-    [chi_inliers, chi_outliers, num_inliers, num_solver_corr]."""
+    [chi_inliers, chi_outliers, num_inliers, num_solver_corr]. The GN rounds
+    each frame ran, (F,) int32 on the inputs' device (the kernel's own count:
+    no launch, no sync), are appended to the list ``rounds_out``, if given."""
     f, depth, s = cand.idx.shape
     _lib.tally("track_frames_planar" if planar else "track_frames",
                roofline.frame_model, f, s, depth, num_iterations, planar)
@@ -558,8 +569,20 @@ def track_frames(
     args = (params, init_tri, init_tri_ok, cand, prev_al, cur_al, corr_valid,
             num_iterations, min_iterations, planar)
     if _lib.use_kernel(backend, prev_al):
-        return track_frames_cuda(*args)
-    return track_frames_plain(*args)
+        return _rounds_apart(track_frames_cuda(*args), rounds_out)
+    counts = []
+    out = track_frames_plain(*args, rounds_out=counts)
+    return _rounds_apart((*out, counts), rounds_out)
+
+
+def _rounds_apart(out, rounds_out):
+    """A frame loop's four outputs; its rounds (a tensor, or a list of a
+    plain version's counts) appended to ``rounds_out`` as an int32 tensor on
+    the outputs' device, if given."""
+    *out, rounds = out
+    if rounds_out is not None:
+        rounds_out.append(torch.as_tensor(rounds, dtype=torch.int32, device=out[0].device))
+    return tuple(out)
 
 
 # --------------------------------------------------------------------------
@@ -590,7 +613,9 @@ def track_frames_batched_plain(params, pose0, init_tri, init_tri_ok, cand: JoinC
 def track_frames_batched_cuda(params, pose0, init_tri, init_tri_ok, cand: JoinCandidates,
                               prev_al, cur_al, corr_valid, num_iterations: int,
                               min_iterations: int = 1, planar: bool = False):
-    """Launch K8: one CTA (or cluster) per sequence, one thread per lane (S <= 1024)."""
+    """Launch K8: one CTA (or cluster) per sequence, one thread per lane (S <=
+    1024). Returns :func:`track_frames_batched`'s four outputs and the GN
+    rounds each frame ran, (N, F) int32."""
     n, f, depth, s = cand.idx.shape
     dev = _lib.cuda_device(prev_al)
     if s > 1024:
@@ -608,14 +633,15 @@ def track_frames_batched_cuda(params, pose0, init_tri, init_tri_ok, cand: JoinCa
     tri = torch.empty((n, f, s, 3), dtype=torch.float32, device=dev)
     tri_ok = torch.empty((n, f, s), dtype=torch.bool, device=dev)
     stats = torch.empty((n, f, 4), dtype=torch.float32, device=dev)
+    rounds = torch.empty((n, f), dtype=torch.int32, device=dev)
     _lib.launch(
         *(("track_frames_batched_planar", "vo_track_frames_batched_planar") if planar
           else ("track_frames_batched", "vo_track_frames_batched")), dev,
         *(t.data_ptr() for t in (params, pose0, init_tri, init_tri_ok, cand.idx, cand.ok, prev_al,
-                                 cur_al, corr_valid, poses, tri, tri_ok, stats)),
+                                 cur_al, corr_valid, poses, tri, tri_ok, stats, rounds)),
         n, f, s, depth, int(num_iterations), int(min_iterations),
     )
-    return poses, tri, tri_ok, stats
+    return poses, tri, tri_ok, stats, rounds
 
 
 def track_frames_batched(
@@ -623,6 +649,7 @@ def track_frames_batched(
     prev_al, cur_al, corr_valid, num_iterations: int, kernel_threshold, damping, tolerance,
     keep_outliers: bool = False, warm_start: bool = False, min_num_inliers=0.0,
     min_iterations: int = 1, backend: str = "auto", planar: bool = False, cam_in_robot=None,
+    rounds_out=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Track N independent sequences in one launch (the JAX
     ``track_frames_fused_serving`` contract): one shared camera and one set of
@@ -633,7 +660,8 @@ def track_frames_batched(
     result of :func:`track_frames` on that sequence's inputs. A sequence with
     no valid correspondence runs ``min_iterations`` rounds a frame (the whole
     budget under ``tolerance < 0``) on zero sums and keeps its start pose or
-    the identity; nothing in it is NaN."""
+    the identity; nothing in it is NaN. The GN rounds, (N, F) int32, are
+    appended to ``rounds_out`` as :func:`track_frames` appends its own."""
     n, f, depth, s = cand.idx.shape
     _lib.tally("track_frames_batched_planar" if planar else "track_frames_batched",
                roofline.serving_model, n, f, s, depth, num_iterations, planar)
@@ -644,5 +672,7 @@ def track_frames_batched(
     args = (params, pose0, init_tri, init_tri_ok, cand, prev_al, cur_al, corr_valid,
             num_iterations, min_iterations, planar)
     if _lib.use_kernel(backend, prev_al):
-        return track_frames_batched_cuda(*args)
-    return track_frames_batched_plain(*args)
+        return _rounds_apart(track_frames_batched_cuda(*args), rounds_out)
+    counts = []
+    out = track_frames_batched_plain(*args, rounds_out=counts)
+    return _rounds_apart((*out, counts), rounds_out)

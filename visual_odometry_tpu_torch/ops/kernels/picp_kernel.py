@@ -102,10 +102,12 @@ def _solve_plain(params, world_points, measured_points, weights, num_iterations,
 
 
 def _solve_cuda(camera_matrix, pose0, cam_params, mount, world_points, measured_points, weights,
-                num_iterations, min_iterations, knobs):
+                num_iterations, min_iterations, knobs, rounds_out=None):
     """Launch K6. ``cam_params`` is four () or one (4,) float32 tensors;
     ``mount`` the (24,) mount rows on the card, None for SE(3); ``knobs``
-    (kernel_threshold, keep_outliers, damping, tolerance, min_inliers)."""
+    (kernel_threshold, keep_outliers, damping, tolerance, min_inliers). The
+    GN rounds run, a () int32 view of the output (no copy, no sync), are
+    appended to the list ``rounds_out``, if given."""
     n = world_points.shape[0]
     dev = _lib.cuda_device(world_points)
     _lib.check(world_points, "world_points", torch.float32, (n, 3), dev)
@@ -121,7 +123,7 @@ def _solve_cuda(camera_matrix, pose0, cam_params, mount, world_points, measured_
         for c in cam_params:
             _lib.check(c, "cam_params", torch.float32, (), dev)
         cams = tuple(c.data_ptr() for c in cam_params)
-    out = torch.empty((19,), dtype=torch.float32, device=dev)
+    out = torch.empty((20,), dtype=torch.float32, device=dev)
     ctas, threads = solve_geometry(n)
     ptrs = (camera_matrix.data_ptr(), pose0.data_ptr(), *cams)
     if mount is not None:
@@ -134,6 +136,8 @@ def _solve_cuda(camera_matrix, pose0, cam_params, mount, world_points, measured_
         *(t.data_ptr() for t in (world_points, measured_points, weights, out)),
         n, ctas, threads, int(num_iterations), int(min_iterations), *knobs,
     )
+    if rounds_out is not None:
+        rounds_out.append(out.view(torch.int32)[19])
     return out[:16].view(4, 4), _stats(out, 16)
 
 
@@ -150,7 +154,7 @@ def _solve(backend, planar, camera_matrix, world_in_camera, cam_params, cam_in_r
         return _solve_cuda(_f32(camera_matrix), _f32(world_in_camera),
                            cam_params if isinstance(cam_params, tuple) else _f32(cam_params),
                            mount_rows(cam_in_robot).to(dev) if planar else None, *points,
-                           num_iterations, min_iterations, knobs)
+                           num_iterations, min_iterations, knobs, rounds_out)
     # The frame kernels' parameter row, the start pose in its pose slot;
     # warm_start and K^-1 are not read.
     if isinstance(cam_params, tuple):
@@ -164,29 +168,31 @@ def _solve(backend, planar, camera_matrix, world_in_camera, cam_params, cam_in_r
 def solve_fused(camera_matrix, world_in_camera, cam_params, world_points, measured_points,
                 weights, num_iterations: int, kernel_threshold, damping, tolerance,
                 keep_outliers: bool = False, min_num_inliers=0.0, min_iterations: int = 1,
-                backend: str = "auto") -> Tuple[torch.Tensor, PICPStats]:
+                backend: str = "auto", rounds_out=None) -> Tuple[torch.Tensor, PICPStats]:
     """Whole SE(3) PICP solve (the JAX ``solve_fused`` contract): camera matrix
     (3, 3), start pose (4, 4), cam_params (4,) = [z_near, z_far, cols, rows]
     (or, on the card, a tuple of those four () tensors), world (N, 3),
     measurements (N, 2), weights (N,); a dead slot (weight <= 0) may hold
     anything. Pass ``tolerance < 0`` for the fixed-budget loop. Returns
-    (pose (4, 4), stats of the last round)."""
+    (pose (4, 4), stats of the last round). The number of GN rounds run is
+    appended to the list ``rounds_out``, if given: an int from the plain
+    version, a () int32 tensor on the card."""
     return _solve(backend, False, camera_matrix, world_in_camera, cam_params, None, world_points,
                   measured_points, weights, num_iterations, kernel_threshold, damping, tolerance,
-                  keep_outliers, min_num_inliers, min_iterations)
+                  keep_outliers, min_num_inliers, min_iterations, rounds_out)
 
 
 def solve_se2_fused(camera_matrix, world_in_camera, cam_params, cam_in_robot, world_points,
                     measured_points, weights, num_iterations: int, kernel_threshold, damping,
                     tolerance, keep_outliers: bool = False, min_num_inliers=0.0,
-                    min_iterations: int = 1,
-                    backend: str = "auto") -> Tuple[torch.Tensor, PICPStats]:
+                    min_iterations: int = 1, backend: str = "auto",
+                    rounds_out=None) -> Tuple[torch.Tensor, PICPStats]:
     """Whole planar PICP solve (``ops.picp_se2.solve_se2``'s loop, est_SE2);
     ``cam_in_robot`` is the (4, 4) mount, None = identity. Same contract as
     :func:`solve_fused`."""
     return _solve(backend, True, camera_matrix, world_in_camera, cam_params, cam_in_robot,
                   world_points, measured_points, weights, num_iterations, kernel_threshold,
-                  damping, tolerance, keep_outliers, min_num_inliers, min_iterations)
+                  damping, tolerance, keep_outliers, min_num_inliers, min_iterations, rounds_out)
 
 
 def solve_fused_plain(camera_matrix, world_in_camera, cam_params, world_points, measured_points,

@@ -16,6 +16,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..utils.config import MATCHER_PRECISIONS
+from ..utils.profiling import host_wait
 from .kernels import matcher_kernel
 from .kernels.matcher_kernel import pairwise_sq_dists
 
@@ -76,7 +77,8 @@ def match_appearances_batch(app1, mask1, app2, mask2, radius: float = 0.1,
     idx2 = torch.where(kd_is_1, slots, best2)
     best_d = torch.where(kd_is_1, best1_d, best2_d)
     query_mask = torch.where(kd_is_1, mask2, mask1)
-    valid = query_mask & (best_d < r2.to(best_d.device))
+    with host_wait("match.radius"):
+        valid = query_mask & (best_d < r2.to(best_d.device))
     return Correspondences(idx1=idx1, idx2=idx2, valid=valid)
 
 

@@ -131,10 +131,11 @@ def one_round(camera: Camera, world_points, measured_points, weights, kernel_thr
 
 
 def run_rounds(round_fn, camera: Camera, num_iterations: int, tolerance: float,
-               min_iterations: int, dtype, device) -> Tuple[Camera, PICPStats]:
+               min_iterations: int, dtype, device, rounds_out=None) -> Tuple[Camera, PICPStats]:
     """The GN loop around ``round_fn(camera) -> (camera, stats, dx)``:
     ``tolerance <= 0`` runs exactly ``num_iterations`` rounds; otherwise it
-    stops once ``||dx||^2 <= tolerance``, but not before ``min_iterations``."""
+    stops once ``||dx||^2 <= tolerance``, but not before ``min_iterations``.
+    The number of rounds run is appended to the list ``rounds_out``, if given."""
     stats = PICPStats(
         chi_inliers=torch.zeros((), dtype=dtype, device=device),
         chi_outliers=torch.zeros((), dtype=dtype, device=device),
@@ -146,17 +147,21 @@ def run_rounds(round_fn, camera: Camera, num_iterations: int, tolerance: float,
         it += 1
         if tolerance > 0.0:
             dx2 = float((dx * dx).sum())   # the host decides the exit: one sync a round
+    if rounds_out is not None:
+        rounds_out.append(it)
     return camera, stats
 
 
 def solve(camera: Camera, world_points, measured_points, weights, num_iterations: int,
           kernel_threshold: float = 10000.0, damping: float = 1.0, keep_outliers: bool = False,
           tolerance: float = 0.0, backend: str = "auto", min_num_inliers: int = 0,
-          min_iterations: int = 1) -> Tuple[Camera, PICPStats]:
+          min_iterations: int = 1, rounds_out=None) -> Tuple[Camera, PICPStats]:
     """Up to ``num_iterations`` GN rounds (the host loops of
     vo_complete.cpp:163-164 and vo_daKnown.cpp:149-150). ``backend``: ``auto``
     launches kernel K6 for CUDA tensors and runs the plain loop for CPU
-    tensors, ``cuda`` requires the kernel, ``torch`` is the plain loop."""
+    tensors, ``cuda`` requires the kernel, ``torch`` is the plain loop. The
+    number of rounds run is appended to the list ``rounds_out``, if given:
+    an int from the plain loop, a () int32 tensor from K6."""
     # Dead correspondence slots may carry garbage (failed triangulations can be
     # NaN/inf); 0 * NaN = NaN would poison the H/b sums on either route. K6
     # sanitizes them in the kernel; the plain loop here, once up front.
@@ -169,6 +174,7 @@ def solve(camera: Camera, world_points, measured_points, weights, num_iterations
             measured_points, weights, num_iterations, kernel_threshold, damping,
             tolerance if tolerance > 0.0 else -1.0, keep_outliers=keep_outliers,
             min_num_inliers=min_num_inliers, min_iterations=min_iterations, backend="cuda",
+            rounds_out=rounds_out,
         )
         return with_pose(camera, pose), stats
 
@@ -186,4 +192,4 @@ def solve(camera: Camera, world_points, measured_points, weights, num_iterations
                          keep_outliers, min_num_inliers)
 
     return run_rounds(round_fn, camera, num_iterations, tolerance, min_iterations,
-                      world_points.dtype, world_points.device)
+                      world_points.dtype, world_points.device, rounds_out)

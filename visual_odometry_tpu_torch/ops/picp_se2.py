@@ -67,11 +67,12 @@ def solve_se2(camera: Camera, world_points, measured_points, weights, num_iterat
               kernel_threshold: float = 10000.0, damping: float = 1.0,
               keep_outliers: bool = False, tolerance: float = 0.0,
               cam_in_robot: Optional[torch.Tensor] = None, min_num_inliers: int = 0,
-              min_iterations: int = 1) -> Tuple[Camera, PICPStats]:
+              min_iterations: int = 1, rounds_out=None) -> Tuple[Camera, PICPStats]:
     """Planar PICP solve, the loop of ``picp.solve``. ``cam_in_robot=None``
     means the camera is the planar body (identity mount). The returned pose
     lies in the conjugated SE(2) subgroup provided the start pose does
-    (callers planarize the start with ``se3.project_se2``)."""
+    (callers planarize the start with ``se3.project_se2``). The number of
+    rounds run is appended to the list ``rounds_out``, if given."""
     dtype, dev = world_points.dtype, world_points.device
     if cam_in_robot is None:
         c = torch.eye(4, dtype=dtype, device=dev)
@@ -83,4 +84,5 @@ def solve_se2(camera: Camera, world_points, measured_points, weights, num_iterat
         return one_round_se2(cam, world_points, measured_points, weights, kernel_threshold,
                              damping, c, c_inv, keep_outliers, min_num_inliers)
 
-    return picp.run_rounds(round_fn, camera, num_iterations, tolerance, min_iterations, dtype, dev)
+    return picp.run_rounds(round_fn, camera, num_iterations, tolerance, min_iterations, dtype, dev,
+                           rounds_out)

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import host_wait
+
 
 def _rot(s, c, o, z, rows):
     return torch.stack([torch.stack(r, -1) for r in rows(s, c, o, z)], -2)
@@ -45,7 +47,8 @@ def pose_from_rt(rotation: torch.Tensor, translation: torch.Tensor) -> torch.Ten
     rotation = rotation.expand(batch + (3, 3))
     translation = translation.expand(batch + (3,))
     top = torch.cat([rotation, translation[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rotation.dtype, device=rotation.device)
+    with host_wait("se3.bottom_row"):
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rotation.dtype, device=rotation.device)
     return torch.cat([top, bottom.expand(batch + (1, 4))], dim=-2)
 
 

@@ -112,6 +112,7 @@ def _track_batched(camera: Camera, config: VOConfig, points, appearances, masks,
         prev_al = gather_kernel.gather_rows(prev.points, safe1, backend=backend)
         cur_al = gather_kernel.gather_rows(rest.points, safe2, backend=backend)
 
+    rounds = []
     with stage("frame_loop"):
         poses, tri_all, tri_ok_all, solver_stats = frame_kernel.track_frames_batched(
             camera.camera_matrix, camera.params(), x_curr, tri_points.contiguous(),
@@ -120,7 +121,8 @@ def _track_batched(camera: Camera, config: VOConfig, points, appearances, masks,
             config.gn_tolerance if config.gn_tolerance > 0.0 else -1.0,
             keep_outliers=config.keep_outliers, warm_start=config.warm_start,
             min_num_inliers=config.min_num_inliers, min_iterations=config.gn_min_iterations,
-            backend=backend, planar=config.planar, cam_in_robot=config.planar_mount())
+            backend=backend, planar=config.planar, cam_in_robot=config.planar_mount(),
+            rounds_out=rounds)
     with stage("appearance_gathers"):
         tri_apps_all = gather_kernel.gather_rows(rest.appearances, safe2, backend=backend)
 
@@ -134,6 +136,7 @@ def _track_batched(camera: Camera, config: VOConfig, points, appearances, masks,
         tri_apps=tri_apps_all,
         tri_valid=tri_ok_all,
         join_overflow=cand.overflow.sum(dim=-1).to(torch.int32),
+        gn_rounds=rounds[0],
     )
     return x_init, outs, init_tri
 

@@ -6,9 +6,10 @@ The reference times its data-association stage per frame into
 writes that file.
 
 The pipeline's entry points wrap their own steps in :func:`stage`, so a
-``torch.profiler`` trace shows them as ``vo/<name>`` ranges, and a caller that
-wants their times runs the entry points inside :func:`stage_times`.
-:func:`trace` writes a ``torch.profiler`` trace of a block.
+``torch.profiler`` trace shows them as ``vo/<name>`` ranges, and each call of
+theirs that makes the host wait for the card in :func:`host_wait`, counted in
+:data:`host_waits` and shown as a ``wait/<stage>.<site>`` range inside its
+stage's. :func:`trace` writes a ``torch.profiler`` trace of a block.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import time
 from collections import defaultdict
 from typing import Dict, Iterator, List, Optional
 
+import torch
 from torch.profiler import profile, record_function, supported_activities, tensorboard_trace_handler
 
 from .timing import sync
@@ -66,33 +68,40 @@ class StageTimer:
                     f.write(f"{x * 1e3:g}\n")
 
 
-_collecting: Optional[StageTimer] = None
-
-
 @contextlib.contextmanager
 def stage(name: str) -> Iterator[None]:
-    """One named step of a pipeline entry point: always a ``torch.profiler``
-    range ``vo/<name>``; inside :func:`stage_times` also a wall-clock sample
-    ended by a device sync (which serializes host and device: the samples add
-    up to more than an untimed call)."""
+    """One named step of a pipeline entry point: a ``torch.profiler`` range
+    ``vo/<name>``."""
     with record_function("vo/" + name):
-        if _collecting is None:
-            yield
-        else:
-            with _collecting.stage(name):
-                yield
+        yield
+
+
+# The host waits of the main path by site (``<stage>.<site>``), counted by
+# :func:`host_wait` whether or not a profiler records; the benchmark resets
+# and reads them.
+host_waits: Dict[str, int] = {}
+
+
+def reset_host_waits() -> None:
+    host_waits.clear()
 
 
 @contextlib.contextmanager
-def stage_times() -> Iterator[StageTimer]:
-    """Collect the :func:`stage` samples of everything run inside the block."""
-    global _collecting
-    previous, timer = _collecting, StageTimer()
-    _collecting = timer
-    try:
-        yield timer
-    finally:
-        _collecting = previous
+def host_wait(site: str, waits: int = 1) -> Iterator[None]:
+    """A call that makes the host wait for the card ``waits`` times (a
+    device-to-host read, an operator that reads a size or a bound back, a
+    copy from pageable host memory, each of which drains the stream):
+    counted in :data:`host_waits` under ``site`` and, while a
+    ``torch.profiler`` records, a ``wait/<site>`` range on the trace's clock.
+    Its prefix is not ``vo/``: a device operation launched inside it keeps
+    the label of its ``vo/`` stage. With no profiler it costs one flag test
+    and one count."""
+    host_waits[site] = host_waits.get(site, 0) + waits
+    if not torch.autograd._profiler_enabled():
+        yield
+        return
+    with record_function("wait/" + site):
+        yield
 
 
 @contextlib.contextmanager
