@@ -44,7 +44,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      their plain versions on every output and twice alike, batch-invariant
      at B = 1, 16, 32 and 64 with pipeline.initialize_batched and the
      batched merge_stream, beside the stacked torch.linalg form of the pose
-     (its library time); every
+     (its library time); P2 (map_fold, port-only: the JAX package's XLA
+     fold) at the benchmark cells' streams (1 x 15,360 and 64 x 15,360 rows
+     at capacity 1,024, 1 x 523,264 at 2,048) bit for bit against the plain
+     fold on every output and twice alike, timed beside it; every
      row's bound_ms and bound_by come from a utils/roofline work model at
      the row's shapes (and GN rounds) against this card's spec;
   3b. utils/selfcheck.run_all's eight checks on the card, each with its
@@ -79,7 +82,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      matplotlib, which the card's machine lacks: tests/test_torch_plots.py
      holds them on the CPU;
   5. path B: pipeline.run_sequence at 1024 slots x 512 frames, held against
-     the same run through the plain versions, and its frames/s;
+     the same run through the plain versions, and its frames/s; its map fold
+     (one P2 launch) bit for bit against the plain fold, as on paths D, E
+     and H (each map's SHA-256 printed);
   6. path C: map-scale relocalization, pipeline.relocalize_frame of 1024
      queries against a map of 2^20 landmarks in both matcher precisions, and
      the standalone planar solve at N = 8192;
@@ -190,8 +195,10 @@ KERNELS = {
     "picp_linearize": (_CSRC + "picp_linearize.cu", _PALLAS + "picp_kernel.py:141", "G"),
     # P1, port-only: the JAX package computes the eight-point pose with XLA (no pallas_call).
     "eight_point": (_CSRC + "eight_point.cu", "visual_odometry_tpu/ops/epipolar.py:287", "E"),
+    # P2, port-only: the JAX package folds the map with two XLA sorts (no pallas_call).
+    "map_fold": (_CSRC + "map_fold.cu", "visual_odometry_tpu/models/landmark_map.py:103", "B"),
 }
-PORT_ONLY = ("eight_point",)
+PORT_ONLY = ("eight_point", "map_fold")
 MAIN_PATH = ("match_pairs", "join_candidates", "gather_rows", "track_frames")
 K3_PATH_LAUNCHES = 3   # a tracked sequence gathers previous pixels, current pixels, appearances
 # Path A's applications run K1-K7 except the standalone planar solve.
@@ -207,9 +214,9 @@ SERVE_B, SERVE_FRAMES, SERVE_SLOTS = 64, 128, 128
 CHUNKS, CHUNK_OVERLAP = 4, 10    # path H: path B's sequence as 4 chunks
 # Path H's launches: K1 for the bootstrap scores, the chunks' bootstrap pairs and
 # their flattened pairs; one K2; three K3; one K8 over the chunks; no K4; one P1
-# for the chunks' bootstraps.
+# for the chunks' bootstraps; one P2 for the stitched map.
 PATH_H = {"match_pairs": 3, "join_candidates": 1, "gather_rows": K3_PATH_LAUNCHES,
-          "track_frames_batched": 1, "track_frames": 0, "eight_point": 1}
+          "track_frames_batched": 1, "track_frames": 0, "eight_point": 1, "map_fold": 1}
 CHUNK_RATIO_TOL = 0.05   # each frame's translation ratio to serial path B, about their median
 BA_POSES, BA_LANDMARKS, BA_STEPS, BA_CG = 512, 100_000, 3, 64
 MESH_SHARDS = 4            # path I: ranks sharing the card over gloo
@@ -223,6 +230,13 @@ ENTRY_TRI_TOL = 5e-4       # the entry's triangulations, card against CPU (the p
 PATH_J = ("match_pairs", "join_candidates", "gather_rows", "track_frames", "best_match",
           "track_frames_batched", "segment_sum", "take_table", "picp_solve")
 MOUNT_V = (0.05, -0.1, 0.02, 0.01, -0.02, 0.015)   # a non-identity camera mount, Euler chart
+# P2 at the benchmark cells' streams: sequences, rows (the bootstrap's slots,
+# the head, + tracked frames x slots), head rows, distinct landmark keys in the
+# field, map capacity; its launches a call.
+FOLD_SHAPES = {"ref128.single": (1, 15_360, 128, 1_000, 1024),
+               "ref128.fleet64": (64, 15_360, 128, 1_000, 1024),
+               "dense1024.seq512": (1, 523_264, 1024, 7_500, 2048)}
+FOLD_KERNELS = 4   # fill, insert, count, write
 
 
 
@@ -884,7 +898,7 @@ def compare_eight_point(camera, config, serving_seqs, serving_config, seq_b, pla
                 camera, cfg, u, v, corr=c), (f0, f1, corr), state)
             require(all(init.values()), f"initialize_batched: not batch-invariant: {init}")
             sub["initialize_batch_invariant"] = init
-            streams = fold_streams(b, cfg, device)
+            streams = fold_streams(b, cfg.n_slots * (SERVE_FRAMES - 1), device)
             folded = landmark_map.merge_stream(*streams, cfg.map_capacity)
             fold = blocks_equal(lambda *a: landmark_map.merge_stream(*a, cfg.map_capacity),
                                 streams, tuple(folded))
@@ -897,6 +911,50 @@ def compare_eight_point(camera, config, serving_seqs, serving_config, seq_b, pla
     table["eight_point"] = row
 
 
+def compare_map_fold(device, table, reps: int = 10, launch_reps: int = 50):
+    """P2 (map_fold: ``landmark_map.merge_stream`` on the card) against the
+    plain fold on the same card tensors at the benchmark cells' stream
+    shapes (FOLD_SHAPES), the stream handed over as the pipeline does (the
+    bootstrap's rows as its head): every output bit for bit, two calls
+    alike. Each shape's ms (CUDA events around merge_stream), the call's
+    four kernels alone (their device ms summed, and the host ms), the plain fold's ms and
+    the bound from ``roofline.map_fold_model`` (bytes: each row read once,
+    each slot written once). The row's own numbers are the fleet's."""
+    from visual_odometry_tpu_torch.models import landmark_map
+    from visual_odometry_tpu_torch.ops.kernels import _lib
+    from visual_odometry_tpu_torch.utils import roofline
+    from visual_odometry_tpu_torch.utils.roofline import launch_floor, launch_times
+
+    floor = launch_floor(device, launch_reps)
+    row = dict(max_abs_err=0.0, bitwise=True, launch_floor=floor)
+    for label, (b, t, h, keys, cap) in FOLD_SHAPES.items():
+        streams = [x[0] if b == 1 else x for x in fold_streams(b, t, device, keys)]
+        axis = streams[2].dim() - 1     # one stream has no batch axis, as run_sequence folds
+        head = tuple(x.narrow(axis, 0, h).contiguous() for x in streams)
+        body = [x.narrow(axis, h, t - h).contiguous() for x in streams]
+
+        def fold(backend="auto"):
+            return landmark_map.merge_stream(*body, cap, backend=backend, head=head)
+
+        _lib.reset_launches()
+        out = fold()
+        require(_lib.launches["map_fold"] == 1, f"P2 {label}: {_lib.launches}")
+        require(same_bits(*zip(out, fold())), f"P2 {label}: two calls gave different bits")
+        whole = landmark_map.merge_stream(*streams, cap, backend="torch")
+        require(same_bits(*zip(out, whole)), f"P2 {label}: differs from the plain fold")
+        alone = launch_times(fold, device, launch_reps)
+        row[label] = dict(
+            sequences=b, rows=t, head_rows=h, keys=keys, capacity=cap,
+            landmarks=out.count.reshape(-1)[:4].tolist(),
+            ms=time_ms(fold, device, reps), launch_ms=alone["ms"],
+            device_ms=FOLD_KERNELS * alone["device_ms"], host_ms=alone["host_ms"],
+            plain_ms=time_ms(lambda: fold("torch"), device, reps),
+            **roofline_bound(roofline.map_fold_model(b, t, 10, cap), device))
+    fleet = row["ref128.fleet64"]
+    row.update({k: fleet[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")})
+    table["map_fold"] = row
+
+
 def blocks_flat(t):
     """The tensors of a tensor or a tuple tree of tensors, in order."""
     import torch
@@ -904,17 +962,16 @@ def blocks_flat(t):
     return [t] if isinstance(t, torch.Tensor) else [y for x in t for y in blocks_flat(x)]
 
 
-def fold_streams(b: int, config, device, frames: int = SERVE_FRAMES, seed: int = 0):
-    """``b`` streams of path E's fold (n_slots bootstrap rows and n_slots rows
-    a tracked frame), each re-observing a field of 160 landmark keys, one in
-    five rows masked: (points, appearances, mask) on the card."""
+def fold_streams(b: int, t: int, device, keys: int = 160, seed: int = 0):
+    """``b`` streams of ``t`` rows (a fold's: the bootstrap's slots, then the
+    slots of every tracked frame), each re-observing a field of ``keys``
+    landmark keys of its own, one in five rows masked: (points, appearances,
+    mask) on the card."""
     import torch
 
     rng = np.random.default_rng(seed)
-    t = config.n_slots * (frames - 1)
-    table = rng.uniform(-1, 1, (b, 160, 10)).astype(np.float32)
-    keys = rng.integers(0, 160, (b, t))
-    apps = np.take_along_axis(table, keys[..., None], axis=1)
+    table = rng.uniform(-1, 1, (b, keys, 10)).astype(np.float32)
+    apps = np.take_along_axis(table, rng.integers(0, keys, (b, t))[..., None], axis=1)
     pts = rng.normal(size=(b, t, 3)).astype(np.float32)
     mask = rng.uniform(size=(b, t)) > 0.2
     return tuple(torch.from_numpy(x).to(device) for x in (pts, apps, mask))
@@ -1128,6 +1185,7 @@ def run_path_h(camera, config, pts, apps, masks, device, serial_traj, serial_fps
         traj, map_state, diags = chunked()
     sync(device)
     require(len(folds) == 1, f"path H: {len(folds)} merge_stream calls, expected one")
+    fold_sha = hold_folds_to_plain(folds, "path H")
     launches = read_launches(tuple(k for k, v in PATH_H.items() if v), "path H", require_launches)
     if require_launches:
         require(all(launches[k] == v for k, v in PATH_H.items()),
@@ -1165,6 +1223,7 @@ def run_path_h(camera, config, pts, apps, masks, device, serial_traj, serial_fps
         "rot_consistency": diags.rot_consistency.tolist(), "num_ratio_obs": obs,
         "e_theta_mean_vs_path_b": e_theta, "ratio_median_vs_path_b": float(np.median(ratio)),
         "ratio_spread_vs_path_b": spread, "map_landmarks": int(map_state.count),
+        "map_sha256": fold_sha,
         "seconds": seconds, "frames_per_s": fps, "path_b_frames_per_s": serial_fps,
         "launches": launches}}))
     print(f"path H frames/s: {fps:.1f} chunked ({CHUNKS} chunks of {length} from {list(starts)}), "
@@ -1496,6 +1555,21 @@ def recording(module, name: str):
         setattr(module, name, fn)
 
 
+def hold_folds_to_plain(calls, label: str) -> str:
+    """Each recorded ``landmark_map.merge_stream`` call run again through the
+    plain fold (``backend="torch"``) on the same card tensors: the maps' bits
+    must be equal, so the map keeps the SHA-256 the plain fold gave before
+    P2. Returns the SHA-256 of the last call's map."""
+    from visual_odometry_tpu_torch.models import landmark_map
+
+    sha = ""
+    for args, kwargs, out in calls:
+        plain = landmark_map.merge_stream(*args, **dict(kwargs, backend="torch"))
+        sha = digest(out)
+        require(sha == digest(plain), f"{label}: P2's map differs from the plain fold's")
+    return sha
+
+
 def hold_solves_to_plain(calls, label: str) -> float:
     """Each recorded K6 solve (picp_kernel.solve_fused) run again through its
     plain version on the same card tensors: the poses within GN_POSE_TOL and
@@ -1685,19 +1759,22 @@ def run_path_a_apps(data: str, work_dir: str, device, require_launches: bool = T
 
 def run_path_b(camera, config, pts, apps, masks, device, require_launches: bool = True,
                reps: int = 3):
-    """Full-width tracking through the kernels, held against the plain versions."""
+    """Full-width tracking through the kernels, held against the plain versions;
+    its map fold (P2) bit for bit against the plain fold on the same call."""
     import torch
 
-    from visual_odometry_tpu_torch.models import pipeline
+    from visual_odometry_tpu_torch.models import landmark_map, pipeline
     from visual_odometry_tpu_torch.ops.kernels import _lib
 
     _lib.reset_launches()
-    traj, map_state, outs = pipeline.run_sequence(camera, config, pts, apps, masks)
+    with recording(landmark_map, "merge_stream") as folds:
+        traj, map_state, outs = pipeline.run_sequence(camera, config, pts, apps, masks)
     sync(device)
     launches = read_launches(MAIN_PATH, "path B", require_launches)
     if require_launches:
-        require(launches["gather_rows"] == K3_PATH_LAUNCHES,
-                f"path B: K3 must launch {K3_PATH_LAUNCHES} times: {launches}")
+        require(launches["gather_rows"] == K3_PATH_LAUNCHES and launches["map_fold"] == 1,
+                f"path B: K3 must launch {K3_PATH_LAUNCHES} times and P2 once: {launches}")
+    fold_sha = hold_folds_to_plain(folds, "path B")
     require(bool(torch.isfinite(traj).all()), "path B: non-finite poses")
     plain = config.replace(matcher_backend="torch", scan_backend="torch")
     traj_p, map_p, _ = pipeline.run_sequence(camera, plain, pts, apps, masks)
@@ -1716,6 +1793,7 @@ def run_path_b(camera, config, pts, apps, masks, device, require_launches: bool 
     print(json.dumps({"path_b": {"frames": frames, "slots": pts.shape[1],
                                  "traj_max_abs_err_vs_plain": err,
                                  "map_landmarks": int(map_state.count),
+                                 "map_sha256": fold_sha,
                                  "inliers_mean": float(outs.num_inliers.float().mean()),
                                  "seconds": seconds, "launches": launches}}))
     print(f"path B frames/s: {fps:.1f} ({frames} frames x {pts.shape[1]} slots, median of {reps})")
@@ -1827,21 +1905,23 @@ def run_path_d(camera, planar, pts, apps, masks, device, require_launches: bool 
     """The planar estimation group at full width (path_d_inputs), kernels only."""
     import torch
 
-    from visual_odometry_tpu_torch.models import pipeline
+    from visual_odometry_tpu_torch.models import landmark_map, pipeline
     from visual_odometry_tpu_torch.ops import se3
     from visual_odometry_tpu_torch.ops.kernels import _lib
 
     mount = torch.from_numpy(planar.planar_mount())
     _lib.reset_launches()
-    traj, map_state, outs = pipeline.run_sequence(camera, planar, pts, apps, masks)
+    with recording(landmark_map, "merge_stream") as folds:
+        traj, map_state, outs = pipeline.run_sequence(camera, planar, pts, apps, masks)
     sync(device)
     launches = read_launches(("match_pairs", "join_candidates", "gather_rows",
-                              "track_frames_planar"), "path D", require_launches)
+                              "track_frames_planar", "map_fold"), "path D", require_launches)
     if require_launches:
         require(launches["track_frames_planar"] == 1 and launches["track_frames"] == 0
-                and launches["gather_rows"] == K3_PATH_LAUNCHES,
-                f"path D: K5 must launch once, K4 not at all, K3 {K3_PATH_LAUNCHES} times: "
-                f"{launches}")
+                and launches["gather_rows"] == K3_PATH_LAUNCHES and launches["map_fold"] == 1,
+                f"path D: K5 and P2 must launch once, K4 not at all, K3 {K3_PATH_LAUNCHES} "
+                f"times: {launches}")
+    fold_sha = hold_folds_to_plain(folds, "path D")
     require(bool(torch.isfinite(traj).all()), "path D: non-finite poses")
     dev = se3.planar_deviation(traj.cpu(), mount)
     require(dev < PLANAR_DEV_TOL, f"path D: planar-subgroup deviation {dev}")
@@ -1855,6 +1935,7 @@ def run_path_d(camera, planar, pts, apps, masks, device, require_launches: bool 
     print(json.dumps({"path_d": {"frames": frames, "slots": pts.shape[1],
                                  "planar_subgroup_dev": dev,
                                  "map_landmarks": int(map_state.count),
+                                 "map_sha256": fold_sha,
                                  "inliers_mean": float(outs.num_inliers.float().mean()),
                                  "seconds": seconds, "launches": launches}}))
     print(f"path D frames/s: {frames / statistics.median(seconds):.1f} "
@@ -1968,11 +2049,13 @@ def run_path_e(camera, serving, device, require_launches: bool = True, reps: int
         ran = read_launches(("match_pairs", "join_candidates", "gather_rows", k8, "eight_point"),
                             label, require_launches)
         require(len(folds) == 1, f"{label}: {len(folds)} merge_stream calls, expected one")
+        fold_sha = hold_folds_to_plain(folds, label)
         if require_launches:
             want = {"match_pairs": 2, "join_candidates": 1, "gather_rows": K3_PATH_LAUNCHES,
-                    k8: 1, "track_frames": 0, "track_frames_planar": 0, "eight_point": 1}
+                    k8: 1, "track_frames": 0, "track_frames_planar": 0, "eight_point": 1,
+                    "map_fold": 1}
             require(all(ran[k] == v for k, v in want.items()),
-                    f"{label}: K1-K3 and P1 must launch once a stage over the batch and K8 "
+                    f"{label}: K1-K3, P1 and P2 must launch once a stage over the batch and K8 "
                     f"once: {ran}")
         for k, v in ran.items():
             launches[k] += v
@@ -2000,7 +2083,7 @@ def run_path_e(camera, serving, device, require_launches: bool = True, reps: int
         report["planar" if planar else "se3"] = {
             "sequences": count, "frames": n_frames, "slots": n_slots,
             "traj_max_abs_err_vs_run_sequence": err,
-            "map_landmarks_mean": float(maps.count.float().mean()),
+            "map_landmarks_mean": float(maps.count.float().mean()), "map_sha256": fold_sha,
             "inliers_mean": float(outs.num_inliers.float().mean()), "seconds": seconds,
             "frames_per_s": frames / statistics.median(seconds),
             "single_sequence_seconds_median": statistics.median(single_s),
@@ -2979,6 +3062,7 @@ def main() -> int:
     compare_chunked_k8(camera, config, (pts, apps, masks), plan, device, table)
     compare_eight_point(camera, config, serving[False][1], serving[False][0], (pts, apps, masks),
                         plan, device, table)
+    compare_map_fold(device, table)
     ba_problem = corridor(device)
     compare_sparse_ba_kernels(ba_problem[1], device, table)
     compare_wide_sparse_ba(device, table)

@@ -16,7 +16,7 @@ K10 is a copy and exact, K11 sums in its plain version's order (1e-5 of the
 largest entry, bitwise expected), K9 sums in one fixed order that its plain
 version repeats: exact, and the same bits in every launch. P1 (both
 instances, every output) is exact: its plain versions repeat its arithmetic
-op for op. utils/selfcheck's
+op for op. P2 (the map fold) selects and copies: exact. utils/selfcheck's
 checks hold their own tolerances (the JAX package's), and utils/roofline's
 fractions lie in (0, 1].
 """
@@ -809,8 +809,9 @@ def test_every_sync_of_the_main_path_is_a_host_wait(dev, cell):
     traffic) under ``torch.cuda.set_sync_debug_mode("warn")``: every
     synchronizing call that ``run_sequence`` / ``run_sequences_batched`` make
     lies in a ``profiling.host_wait`` block of the package, and the host-wait
-    counter is the warnings plus ``torch.unique``'s wait, which the debug
-    mode does not see (test_unique_waits_for_the_card)."""
+    counter is the warnings: 7 a single-sequence call, 6 a batch call, none in
+    the map fold (P2 waits for nothing; the plain fold's ``torch.unique``
+    waited unflagged, test_unique_waits_for_the_card)."""
     from vobench import harness
 
     c = harness.cell(cell)
@@ -845,7 +846,8 @@ def test_every_sync_of_the_main_path_is_a_host_wait(dev, cell):
     waits = dict(profiling.host_waits)
     print(f"{cell}: {len(seen)} synchronizing calls {sorted(seen)}; host waits {waits}")
     assert seen and not outside
-    assert sum(waits.values()) == len(seen) + waits["map_fold.unique"]
+    assert sum(waits.values()) == len(seen) == (6 if cell == "ref128.fleet64" else 7)
+    assert not [site for site in waits if site.startswith("map_fold.")]
 
 
 def test_unique_waits_for_the_card(dev):
@@ -1627,3 +1629,138 @@ def test_initialize_batched_and_fold_batch_invariant(dev):
                  for i in range(0, 64, size)]
         for j, w in enumerate(folded):
             assert torch.equal(torch.cat([p[j] for p in parts]), w), (size, j)
+
+
+def _fold_streams(dev, b, t, keys, seed=0, live=0.8):
+    """B streams of T rows, each re-observing a field of ``keys`` appearance
+    keys of its own (an entry's point changes with every observation), a row
+    in five masked: (points, appearances, mask) on the card, one stream
+    without its batch axis at B = 1 (as ``run_sequence`` folds it)."""
+    rng = np.random.default_rng(seed)
+    table = rng.uniform(-1, 1, (b, keys, 10)).astype(np.float32)
+    apps = np.take_along_axis(table, rng.integers(0, keys, (b, t))[..., None], axis=1)
+    streams = [torch.from_numpy(x).to(dev) for x in (
+        rng.normal(size=(b, t, 3)).astype(np.float32), apps, rng.uniform(size=(b, t)) < live)]
+    return [x[0] for x in streams] if b == 1 else streams
+
+
+def _same_fold(got, want):
+    """The four outputs hold the same bits (float outputs compared as int32,
+    so NaN keys compare too)."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.is_floating_point():
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("b,t,h,keys,capacity", [
+    (1, 15_360, 128, 1_000, 1024),      # ref128.single: 128 + 119 x 128 rows
+    (64, 15_360, 128, 1_000, 1024),     # ref128.fleet64
+    (1, 523_264, 1024, 7_500, 2048),    # dense1024.seq512: 1,024 + 510 x 1,024 rows, overflows
+])
+def test_map_fold_kernel_equals_plain_at_the_cells_shapes(dev, b, t, h, keys, capacity):
+    """P2 (``merge_stream`` on the card) against the plain fold on the same
+    card tensors at the benchmark cells' stream shapes, the stream whole and
+    as the pipeline hands it over (the bootstrap's H rows as its head): one
+    launch, the same bits in all four outputs, every call alike."""
+    streams = _fold_streams(dev, b, t, keys)
+    axis = streams[2].dim() - 1
+    head = tuple(x.narrow(axis, 0, h).contiguous() for x in streams)
+    body = [x.narrow(axis, h, t - h).contiguous() for x in streams]
+    _lib.reset_launches()
+    got = landmark_map.merge_stream(*body, capacity, head=head)
+    assert _lib.launches["map_fold"] == 1 and sum(_lib.launches.values()) == 1
+    want = landmark_map.merge_stream(*streams, capacity, backend="torch")
+    _same_fold(got, want)
+    _same_fold(landmark_map.merge_stream(*streams, capacity, backend="cuda"), want)
+    _same_fold(landmark_map.merge_stream(*body, capacity, backend="torch", head=head), want)
+    assert int(got.count.min()) == min(keys, capacity)   # every key seen; dense overflows
+
+
+def _fold_case(dev, case):
+    """(points, appearances, mask, capacity) of an edge case of the fold."""
+    rng = np.random.default_rng(7)
+    b, t, keys, capacity = 4, 3000, 200, 128
+    table = rng.uniform(-1, 1, (keys, 10)).astype(np.float32)
+    idx = rng.integers(0, keys, (b, t))
+    mask = rng.uniform(size=(b, t)) < 0.8
+    if case == "capacity_reached":     # every key is seen: exactly `capacity` groups
+        keys = capacity = 64
+        idx %= keys
+    elif case == "capacity_1":
+        capacity = 1
+    elif case == "all_masked":
+        mask[:] = False
+    elif case == "one_sequence_masked":
+        mask[2] = False
+    elif case == "tile_edges":         # rows 1,023-1,025 straddle two tiles
+        t, idx, mask = 1025, idx[:, :1025], mask[:, :1025]
+    elif case == "one_row":
+        t, idx, mask = 1, idx[:, :1], np.ones((b, 1), bool)
+    elif case == "repeat_in_frame":    # room for all 201 groups
+        capacity = 256
+    apps = table[idx]
+    if case == "repeat_in_frame":      # a new key ten times in a 128-row frame: the last wins
+        apps[:, 256:266] = rng.uniform(2, 3, 10).astype(np.float32)
+        mask[:, 256:266] = True
+    elif case == "signed_zero":
+        table[:8, :5] = 0.0
+        apps = table[idx]
+        apps[:, ::3, :5] = -0.0
+    elif case == "nan_keys":
+        nans = np.array([0x7FC00000, 0x7FC00001, 0xFFC00000, 0x7FFFFFFF, 0xFF800001],
+                        np.uint32).view(np.float32)
+        rows = rng.random((b, t)) < 0.3
+        apps[rows, rng.integers(0, 10, int(rows.sum()))] = nans[rng.integers(0, 5, int(rows.sum()))]
+    elif case == "last_bit":           # keys 2k and 2k + 1 differ in the last word's low bit
+        table[1::2] = table[0::2]
+        table[1::2, 9] = (table[1::2, 9].view(np.uint32) ^ 1).view(np.float32)
+        apps = table[idx]
+    pts = rng.normal(size=(b, t, 3)).astype(np.float32)
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (pts, apps, mask)], capacity
+
+
+@pytest.mark.parametrize("case", ["all_masked", "one_sequence_masked", "capacity_reached",
+                                  "capacity_1", "repeat_in_frame", "signed_zero", "nan_keys",
+                                  "last_bit", "tile_edges", "one_row"])
+def test_map_fold_kernel_edge_cases(dev, case):
+    """P2 against the plain fold on the card, bit for bit, on the fold's edge
+    cases: batched, with a third of the rows as the head segment, and each
+    sequence alone."""
+    streams, capacity = _fold_case(dev, case)
+    got = landmark_map.merge_stream(*streams, capacity)
+    _same_fold(got, landmark_map.merge_stream(*streams, capacity, backend="torch"))
+    h = streams[2].shape[1] // 3       # a third of the rows as the head (none for one row)
+    _same_fold(landmark_map.merge_stream(*(x[:, h:] for x in streams), capacity,
+                                         head=tuple(x[:, :h] for x in streams)), got)
+    for i in range(streams[0].shape[0]):
+        alone = landmark_map.merge_stream(*(x[i] for x in streams), capacity)
+        _same_fold(alone, [x[i] for x in got])
+    if case in ("all_masked", "one_sequence_masked"):
+        gone = slice(None) if case == "all_masked" else 2
+        assert not got.valid[gone].any() and int(got.count[gone].max()) == 0
+        assert bool(torch.isinf(got.appearances[gone]).all())
+        assert not bool(got.points[gone].abs().max())
+    if case == "capacity_reached":
+        assert got.count.tolist() == [capacity] * 4 and bool(got.valid.all())
+    if case == "repeat_in_frame":
+        slot = (got.appearances == streams[1][:, 256:257]).all(-1) & got.valid
+        assert slot.sum(1).tolist() == [1] * 4
+        assert torch.equal(got.points[slot], streams[0][:, 265])
+
+
+def test_map_fold_makes_no_host_wait(dev):
+    """A card ``merge_stream`` makes no synchronizing call (the sync debug
+    mode raises on one) and counts no host wait."""
+    streams = _fold_streams(dev, 64, 15_360, 1_000)
+    landmark_map.merge_stream(*streams, 1024)      # the library is built and loaded
+    torch.cuda.synchronize()
+    profiling.reset_host_waits()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = landmark_map.merge_stream(*streams, 1024)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not profiling.host_waits
+    _same_fold(out, landmark_map.merge_stream(*streams, 1024, backend="torch"))

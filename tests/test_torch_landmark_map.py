@@ -2,6 +2,7 @@
 slots in the same order, the same count, +inf padding — exact, since the
 map only selects and copies its inputs."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -92,3 +93,97 @@ def test_transform_matches_jax(rng):
     live = tt.valid.numpy()
     np.testing.assert_allclose(tt.points.numpy()[live], np.asarray(jt.points)[live],
                                rtol=1e-5, atol=1e-5)
+
+
+def _same_bits(t, j):
+    """Each output of the port's map holds the JAX map's bits (NaN keys
+    included, whatever their payload)."""
+    for a, b in zip(t, j):
+        a, b = a.numpy(), np.asarray(b)
+        assert a.shape == b.shape
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        np.testing.assert_array_equal(a, b.astype(a.dtype))
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_merge_stream_all_masked_matches_jax(rng, batched):
+    """A stream with no live row folds to the empty map (0 / +inf / False,
+    count 0), alone and as every sequence of a batch (jax.vmap)."""
+    pts, apps, _ = _stream(rng, t=120)
+    mask = np.zeros(120, bool)
+    if batched:
+        pts, apps, mask = (np.stack([x, x, x]) for x in (pts, apps, mask))
+        j = jax.vmap(lambda p, a, m: jlm.merge_stream(p, a, m, 16))(
+            jnp.asarray(pts), jnp.asarray(apps), jnp.asarray(mask))
+    else:
+        j = jlm.merge_stream(jnp.asarray(pts), jnp.asarray(apps), jnp.asarray(mask), 16)
+    t = tlm.merge_stream(*(torch.from_numpy(x) for x in (pts, apps, mask)), 16)
+    _same_bits(t, j)
+    assert not t.valid.any() and bool(torch.isinf(t.appearances).all())
+
+
+def test_merge_stream_nan_keys_match_jax(rng):
+    """Keys holding NaNs of several payloads and signs group by their bits
+    after the + 0.0 as the JAX fold groups them; a NaN never matches a
+    number."""
+    pts, apps, mask = _stream(rng, t=300, keys=60)
+    nans = np.array([0x7FC00000, 0x7FC00001, 0xFFC00000, 0x7FFFFFFF], np.uint32).view(np.float32)
+    rows = rng.choice(300, 120, replace=False)
+    apps[rows, rng.integers(0, 10, 120)] = nans[rng.integers(0, 4, 120)]
+    apps[rows[:40]] = apps[rows[0]]             # one NaN key observed 40 times
+    for capacity in (8, 256):
+        j = jlm.merge_stream(jnp.asarray(pts), jnp.asarray(apps), jnp.asarray(mask), capacity)
+        t = tlm.merge_stream(*(torch.from_numpy(x) for x in (pts, apps, mask)), capacity)
+        _same_bits(t, j)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_merge_stream_torch_backend_is_auto_on_the_cpu(rng, batched):
+    """On CPU tensors ``"auto"`` takes the plain fold, which ``"torch"`` names."""
+    pts, apps, mask = _stream(rng)
+    if batched:
+        pts, apps, mask = (np.stack([x, x[::-1]]) for x in (pts, apps, mask))
+    args = [torch.from_numpy(np.ascontiguousarray(x)) for x in (pts, apps, mask)]
+    auto = tlm.merge_stream(*args, 64)
+    plain = tlm.merge_stream(*args, 64, backend="torch")
+    assert all(torch.equal(a, b) for a, b in zip(auto, plain))
+    assert auto.count.dtype == torch.int32 and auto.count.shape == ((2,) if batched else ())
+
+
+@pytest.mark.parametrize("backend,match", [("cuda", "needs CUDA tensors"),
+                                           ("triton", "expected one of")])
+def test_merge_stream_refuses_a_backend(rng, backend, match):
+    """``"cuda"`` on CPU tensors raises instead of falling back; an unknown
+    backend raises."""
+    args = [torch.from_numpy(x) for x in _stream(rng, t=50)]
+    with pytest.raises(ValueError, match=match):
+        tlm.merge_stream(*args, 16, backend=backend)
+
+
+def test_map_kernel_table_and_launch_checks(rng):
+    """P2's table holds the smallest power of two >= 2 T entries a sequence,
+    and its launcher refuses CPU tensors before it builds anything."""
+    from visual_odometry_tpu_torch.ops.kernels import map_kernel
+
+    assert [map_kernel.table_entries(t) for t in (0, 1, 2, 3, 15_360, 523_264)] == [
+        2, 2, 4, 8, 32_768, 1 << 20]
+    args = [torch.from_numpy(x)[None] for x in _stream(rng, t=50)]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        map_kernel.merge_streams_cuda(*args, 16)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_merge_stream_head_is_the_front_of_the_stream(rng, batched):
+    """A head segment folds as the rows in front of the stream's: the plain
+    fold concatenates it."""
+    pts, apps, mask = _stream(rng)
+    if batched:
+        pts, apps, mask = (np.stack([x, x[::-1]]) for x in (pts, apps, mask))
+    args = [torch.from_numpy(np.ascontiguousarray(x)) for x in (pts, apps, mask)]
+    axis = args[2].dim() - 1
+    whole = tlm.merge_stream(*args, 64)
+    for h in (0, 90, 400):
+        split = tlm.merge_stream(*(x.narrow(axis, h, 400 - h) for x in args), 64,
+                                 head=tuple(x.narrow(axis, 0, h) for x in args))
+        assert all(torch.equal(a, b) for a, b in zip(split, whole))

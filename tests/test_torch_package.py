@@ -147,19 +147,20 @@ def test_kernel_library_lists_every_source_and_symbol():
                 "parallel.scaling", "graft_entry"):
         assert "visual_odometry_tpu_torch." + new in mods
     for src in ("track_frames.cu", "picp_linearize.cu", "take_table.cu", "segment_sum.cu",
-                "eight_point.cu"):
+                "eight_point.cu", "map_fold.cu"):
         assert src in _lib.SOURCES
     assert "visual_odometry_tpu_torch.ops.kernels.epipolar_kernel" in mods
+    assert "visual_odometry_tpu_torch.ops.kernels.map_kernel" in mods
     for kernel in ("track_frames_batched", "track_frames_batched_planar", "segment_sum",
-                   "take_table", "picp_linearize", "eight_point"):
+                   "take_table", "picp_linearize", "eight_point", "map_fold"):
         assert _lib.launches[kernel] == 0
 
 
 def test_chip_smoke_names_every_kernel():
     """chip_smoke.KERNELS lists all eleven kernels of the JAX package (K4-K8
-    in both estimation groups, K7 in both precisions) and the port-only P1:
+    in both estimation groups, K7 in both precisions) and the port-only P1 and P2:
     every launch counter, each with a source that is built and the TPU kernel
-    it replaces (P1: the JAX function it computes, which has no kernel)."""
+    it replaces (P1, P2: the JAX function each computes, which has no kernel)."""
     sys.path.insert(0, ROOT)
     try:
         import chip_smoke
@@ -180,7 +181,7 @@ def test_chip_smoke_names_every_kernel():
         else:
             replaced.add(replaces)
         assert path in "ABCDEFG", name
-    assert chip_smoke.PORT_ONLY == ("eight_point",)
+    assert chip_smoke.PORT_ONLY == ("eight_point", "map_fold")
     # Eleven kernels; K6 has two call sites (solve_fused, solve_se2_fused), and
     # the planar K5 and K8 are named by their GN loops' lines.
     assert len(replaced) == 13

@@ -48,6 +48,7 @@ MODELS = [
     (roofline.take_table_model, dict(n=600_000, t=512, r=12), "n"),
     (roofline.sparse_ba_model, dict(n=592_677, f=512, l=100_000, cg_iters=64), "cg_iters"),
     (roofline.eight_point_model, dict(b=64, s=128, n=128), "b"),
+    (roofline.map_fold_model, dict(b=64, t=15_360, d=10, capacity=1024), "t"),
 ]
 
 

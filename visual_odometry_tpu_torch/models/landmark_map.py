@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..ops import se3
+from ..ops.kernels import _lib, map_kernel
 from ..utils.profiling import host_wait
 
 
@@ -90,7 +91,8 @@ def compact(map_state: LandmarkMap) -> Tuple[np.ndarray, np.ndarray]:
     return map_state.points.cpu().numpy()[valid], map_state.appearances.cpu().numpy()[valid]
 
 
-def merge_stream(points, appearances, mask, capacity: int) -> LandmarkMap:
+def merge_stream(points, appearances, mask, capacity: int, backend: str = "auto",
+                 head=None) -> LandmarkMap:
     """Fold a time-ordered observation stream into a map in one pass; equal to
     iterating :func:`update` over it.
 
@@ -98,24 +100,46 @@ def merge_stream(points, appearances, mask, capacity: int) -> LandmarkMap:
     canonicalized to +0.0, so bit equality is float equality). Per group the
     position is the LAST observation's (each re-observation replaces it) and
     groups enter the map in FIRST-observation order, truncated at
-    ``capacity``. The JAX package's two payload-carrying sorts become
-    ``torch.unique`` over the keys and two ``scatter_reduce`` passes over time.
+    ``capacity``.
 
     With a leading sequence axis ((B, T, 3), (B, T, D), (B, T)) every
-    sequence folds its own stream into its own map, in the same one pass: the
-    sequence index is the first key column, so groups never span sequences,
-    and each sequence keeps its own first-observation order and capacity
-    (the counterpart of ``jax.vmap`` over the JAX fold). Integer keys and
-    copied rows only: a sequence's map has the bits its own fold gives.
+    sequence folds its own stream into its own map, in the same one pass:
+    groups never span sequences, and each sequence keeps its own
+    first-observation order and capacity (the counterpart of ``jax.vmap``
+    over the JAX fold). Integer keys and copied rows only: a sequence's map
+    has the bits its own fold gives.
+
+    ``head``: optional (points, appearances, mask) rows that come before the
+    stream's, as though concatenated in front of them along the row axis
+    (the bootstrap's seed, or a carried map): P2 reads both where they lie,
+    the plain fold concatenates them.
+
+    ``backend``: ``"auto"`` launches P2 (``ops/kernels/map_kernel``: an
+    exact-key hash, four launches, no host wait) on CUDA tensors and runs the
+    plain fold :func:`_merge_streams` on CPU tensors; ``"cuda"`` insists on
+    the kernel; ``"torch"`` takes the plain fold on any device. Both give the
+    same bits.
     """
-    if mask.dim() == 1:
-        out = _merge_streams(points[None], appearances[None], mask[None], capacity)
-        return LandmarkMap(*(x[0] for x in out))
-    return _merge_streams(points, appearances, mask, capacity)
+    one = mask.dim() == 1
+    if one:
+        points, appearances, mask = points[None], appearances[None], mask[None]
+        head = None if head is None else tuple(x[None] for x in head)
+    if _lib.use_kernel(backend, points):
+        out = LandmarkMap(*map_kernel.merge_streams_cuda(points, appearances, mask, capacity,
+                                                         head))
+    else:
+        if head is not None:
+            points, appearances, mask = (torch.cat([h, x], dim=1)
+                                         for h, x in zip(head, (points, appearances, mask)))
+        out = _merge_streams(points, appearances, mask, capacity)
+    return LandmarkMap(*(x[0] for x in out)) if one else out
 
 
 def _merge_streams(points, appearances, mask, capacity: int) -> LandmarkMap:
-    """:func:`merge_stream` of (B, T, ...) streams."""
+    """The plain :func:`merge_stream` of (B, T, ...) streams: the JAX
+    package's two payload-carrying sorts become ``torch.unique`` over the keys
+    (the sequence index the first key column) and two ``scatter_reduce``
+    passes over time; the group count and the kept slots are read back."""
     b, t, d = appearances.shape
     dev = points.device
     apps_c = (appearances + 0.0).reshape(b * t, d)      # -0.0 -> +0.0

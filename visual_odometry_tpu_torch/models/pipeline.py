@@ -497,10 +497,9 @@ def _fold_map(config: VOConfig, init_tri, tri_world: torch.Tensor, outs: FrameOu
     d = outs.tri_apps.shape[-1]
     lead = init_tri.valid.shape[:-1]
     return landmark_map.merge_stream(
-        torch.cat([init_tri.points, tri_world.reshape(lead + (-1, 3))], dim=-2),
-        torch.cat([init_tri.apps, outs.tri_apps.reshape(lead + (-1, d))], dim=-2),
-        torch.cat([init_tri.valid, outs.tri_valid.reshape(lead + (-1,))], dim=-1),
-        config.map_capacity,
+        tri_world.reshape(lead + (-1, 3)), outs.tri_apps.reshape(lead + (-1, d)),
+        outs.tri_valid.reshape(lead + (-1,)), config.map_capacity,
+        head=(init_tri.points, init_tri.apps, init_tri.valid),
     )
 
 
@@ -599,10 +598,9 @@ def continue_sequence(
     d = appearances.shape[-1]
     with stage("map_fold"):
         new_map = landmark_map.merge_stream(
-            torch.cat([state.map.points, tri_world.reshape(-1, 3)]),
-            torch.cat([state.map.appearances, outs.tri_apps.reshape(-1, d)]),
-            torch.cat([state.map.valid, outs.tri_valid.reshape(-1)]),
+            tri_world.reshape(-1, 3), outs.tri_apps.reshape(-1, d), outs.tri_valid.reshape(-1),
             config.map_capacity,
+            head=(state.map.points, state.map.appearances, state.map.valid),
         )
     corr_last = matching.Correspondences(*(x[-1] for x in corr_all))
     new_state = VOState(

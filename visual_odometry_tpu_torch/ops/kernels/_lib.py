@@ -39,7 +39,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "vo_torch_kernels"
 SOURCES = ("match_pairs.cu", "join_candidates.cu", "gather_rows.cu", "track_frames.cu",
            "picp_solve.cu", "best_match.cu", "picp_linearize.cu", "take_table.cu",
-           "segment_sum.cu", "eight_point.cu")
+           "segment_sum.cu", "eight_point.cu", "map_fold.cu")
 HEADERS = ("common.cuh", "gn_loop.cuh")
 # --fmad=false: no multiply-add contraction, so kernel arithmetic rounds like
 # the plain versions' separate PyTorch ops (see csrc/common.cuh).
@@ -55,7 +55,7 @@ launches = {
     "track_frames_planar": 0, "picp_solve": 0, "picp_solve_se2": 0,
     "best_match": 0, "best_match_fast": 0,
     "track_frames_batched": 0, "track_frames_batched_planar": 0,
-    "segment_sum": 0, "take_table": 0, "picp_linearize": 0, "eight_point": 0,
+    "segment_sum": 0, "take_table": 0, "picp_linearize": 0, "eight_point": 0, "map_fold": 0,
 }
 
 
@@ -229,6 +229,7 @@ _SIGNATURES = {
     "vo_picp_linearize": [_P] * 12 + [_I] * 3 + [_F, _F, _P],
     "vo_eight_point": [_P] * 9 + [_I] * 3 + [_P],
     "vo_eight_point_seed": [_P] * 18 + [_I] * 5 + [_L] * 5 + [Mount, _P],
+    "vo_map_fold": [_P] * 11 + [_I] * 6 + [_P],
 }
 
 _lib = None

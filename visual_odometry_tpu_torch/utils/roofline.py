@@ -287,6 +287,17 @@ def take_table_model(n: int, t: int, r: int) -> KernelModel:
                        hbm_bytes=4.0 * (r * t + n + r * n))
 
 
+def map_fold_model(b: int, t: int, d: int, capacity: int) -> KernelModel:
+    """P2, the landmark-map fold of B streams of T rows into maps of
+    ``capacity`` slots: each row's point, D-word key and mask read once
+    (12 + 4 D + 1 bytes, 53 at D = 10), each slot's point, key and flag
+    written once, and a count a map. The hash table and the ranks are the
+    design's scratch, not the function's bytes."""
+    row = 13.0 + 4.0 * d
+    return KernelModel(name="map_fold", tc_flops=0.0, fp32_ops=0.0,
+                       hbm_bytes=b * (t * row + capacity * row + 4.0))
+
+
 # P1's operations (all float64) a correspondence and candidate in the
 # cheirality vote (triangulation.triangulate_pairs_elementwise: both rays 12,
 # the 2x2 system 15, the near-parallel guard 3, the ray parameters 6, the
