@@ -8,9 +8,11 @@ are the set-up), then calls the entry back to back for the window's
 seconds, each call ended by a device sync, cycling the pool in an order
 drawn from the seed. From every pool item it keeps the outputs of one call,
 drawn from the seed among its calls in the first two cycles; after the
-window those outputs are held to the reference run on the same sequences.
-With ``control``, the reference computed in that lower precision takes the
-place of the kept outputs and is judged by the same rule.
+window those outputs are held to the reference run on the same sequences:
+the module the configuration names under ``reference``, its ``track`` and,
+where it defines one, its ``gaps`` (else ``compare.gaps``). With
+``control``, the reference computed in that lower precision takes the place
+of the kept outputs and is judged by the same rule.
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ import numpy as np
 import torch
 
 from . import compare, generator, peaks, program, tracing
-from .reference import vo as reference
 
 VOBENCH = Path(__file__).resolve().parent
 REPO = VOBENCH.parent
@@ -63,6 +64,7 @@ class Cell:
     end_to_end: list   # (spec, path of the reader)
     per_layer: list
     entry_path: Path
+    reference_path: Path
 
 
 def _for_cell(metrics: list, name: str) -> list:
@@ -109,9 +111,13 @@ def cell(name: str, root: Path = REPO) -> Cell:
     if not entry.exists():
         raise FileNotFoundError(f"traffic {w['traffic']!r} names the entry {traffic['entry']!r}, "
                                 f"which has no driver {entry}")
+    reference = root / config["reference"]
+    if not reference.is_file():
+        raise FileNotFoundError(f"configuration {w['config']!r} names the reference "
+                                f"{config['reference']!r}, which is no file {reference}")
     return Cell(name=name, chips=int(w["chips"]), config=config, traffic=traffic, limits=limits,
                 end_to_end=readers(bench["end_to_end"]), per_layer=readers(bench["per_layer"]),
-                entry_path=entry)
+                entry_path=entry, reference_path=reference)
 
 
 def make_pool(c: Cell, seed: int, device) -> dict:
@@ -131,17 +137,24 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def reference(c: Cell):
+    """The reference module the cell's configuration names."""
+    return load_module(c.reference_path)
+
+
 def run_reference(c: Cell, pool: dict, dtype=torch.float64) -> dict:
-    """The reference over the whole pool, in blocks of whole calls."""
+    """The reference's ``track`` over the whole pool."""
     with torch.no_grad():
-        return reference.track(pool["points"], pool["appearances"], pool["masks"],
-                               c.config["vo_config"], c.config["camera"], dtype)
+        return reference(c).track(pool["points"], pool["appearances"], pool["masks"],
+                                  c.config["vo_config"], c.config["camera"], dtype)
 
 
-def check(entry, outputs: dict, ref: dict) -> dict:
+def check(c: Cell, entry, outputs: dict, ref: dict) -> dict:
     """The worst of each compared number over the kept calls ``outputs``
-    ({pool call: the program's output, ``entry.collect``-ed}) against the reference."""
-    return compare.worst([compare.gaps(out, compare.select(ref, entry.sequences(k)))
+    ({pool call: the program's output, ``entry.collect``-ed}) against the
+    reference: its module's ``gaps`` where it has one, else ``compare.gaps``."""
+    gaps = getattr(reference(c), "gaps", compare.gaps)
+    return compare.worst([gaps(out, compare.select(ref, entry.sequences(k)))
                           for k, out in sorted(outputs.items())])
 
 
@@ -311,7 +324,7 @@ def run(c: Cell, seed: int, seconds: float, trace: bool, device, started: float,
     if control is not None:
         lower = run_reference(c, pool, control)
         kept = {k: compare.select(lower, entry.sequences(k)) for k in kept}
-    numbers = check(entry, kept, ref) if kept else {}
+    numbers = check(c, entry, kept, ref) if kept else {}
     ref_s = time.perf_counter() - t_ref
     missing = sorted(set(range(entry.calls)) - set(kept))
     correct, checks = _judge(c, numbers, win.failed == 0 and not missing)

@@ -1,4 +1,6 @@
-"""The plain reference the benchmark holds the program's outputs to
-(``vo.track``). Plain PyTorch, no kernels; it imports nothing of the program
-and takes nothing the program made: it reads the pool the benchmark made and
-works out every stage again."""
+"""The plain references the benchmark holds the program's outputs to, one
+module a configuration names under ``reference``: ``vo`` (``track``) for the
+single-sequence and batched paths, ``vo_chunked`` (``track`` and its own
+``gaps``) for the sequence-parallel path. Plain PyTorch, no kernels; they
+import nothing of the program and take nothing the program made: they read
+the pool the benchmark made and work out every stage again."""

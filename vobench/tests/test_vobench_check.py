@@ -27,8 +27,11 @@ CELLS = tuple(w["name"] for w in json.loads((harness.REPO / "BENCHMARK.json").re
 def tiny(name: str) -> harness.Cell:
     c = harness.cell(name)
     c.config = copy.deepcopy(c.config)
-    # A third of the path's period: long enough for the speed to change.
-    c.config["frames"] = max(10, int(c.config["scene"]["period"]) // 3)
+    # A third of the path's period: long enough for the speed to change; a
+    # chunked configuration's 24 frames a chunk, so that its chunks plan.
+    chunks = int(c.config["vo_config"]["num_chunks"])
+    c.config["frames"] = (max(10, int(c.config["scene"]["period"]) // 3) if chunks == 1
+                          else 24 * chunks)
     if c.config["slots"] > 256:   # the plain frame loop on 1,024 lanes is slow on a CPU
         c.config["slots"] = 256
         c.config["vo_config"].update(n_slots=256, map_capacity=512)
