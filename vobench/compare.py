@@ -79,10 +79,11 @@ def gaps(prog: dict, ref: dict) -> dict:
 
 
 def worst(readings) -> dict:
-    """The worst of each number over several calls' readings (NaN wins)."""
+    """The worst of each number any of several calls' readings holds (NaN
+    wins, and so does a number missing from a reading)."""
     out = {}
-    for name in NUMBERS:
-        vals = [g[name] for g in readings]
+    for name in dict.fromkeys(k for g in readings for k in g):
+        vals = [g.get(name, float("nan")) for g in readings]
         out[name] = float("nan") if any(v != v for v in vals) else max(vals, default=0.0)
     return out
 

@@ -70,8 +70,9 @@ def path_poses(frames: int, scene: dict, device) -> torch.Tensor:
 
 def _frames(world, apps, score, noise, poses, camera: dict, scene: dict, slots: int):
     """One block of sequences: world (b, L, 3), apps (b, L, D), score (b, L),
-    noise (b, F, S, 2) -> (points (b, F, S, 2), appearances (b, F, S, D), masks (b, F, S))."""
-    k = torch.tensor(camera["camera_matrix"], dtype=torch.float32, device=world.device)
+    noise (b, F, S, 2) -> (points (b, F, S, 2), appearances (b, F, S, D), masks (b, F, S)).
+    The projection runs in the dtype of ``world`` and ``poses``; the points are float32."""
+    k = torch.tensor(camera["camera_matrix"], dtype=world.dtype, device=world.device)
     r, t = poses[:, :3, :3], poses[:, :3, 3]
     p = torch.einsum("fij,blj->bfli", r, world) + t[None, :, None, :]
     hom = p @ k.T
@@ -83,11 +84,11 @@ def _frames(world, apps, score, noise, poses, camera: dict, scene: dict, slots: 
     seen = ((z >= camera["z_near"]) & (z <= camera["z_far"]) & (hom[..., 2] > 0.0)
             & (uv[..., 0] >= edge) & (uv[..., 0] <= cols - 1.0 - edge)
             & (uv[..., 1] >= edge) & (uv[..., 1] <= rows - 1.0 - edge))
-    key = torch.where(seen, score[:, None, :], torch.full_like(z, -1.0))
+    key = torch.where(seen, score[:, None, :], torch.full_like(z, -1.0, dtype=score.dtype))
     top, idx = key.topk(slots, dim=-1)                               # strongest first
     live = (top >= 0.0) & (torch.arange(slots, device=world.device)
                            < int(scene["features_per_frame"]))
-    picked = torch.gather(uv, 2, idx[..., None].expand(*idx.shape, 2)) + noise
+    picked = torch.gather(uv, 2, idx[..., None].expand(*idx.shape, 2)).float() + noise
     lim = torch.tensor([cols - 1.0, rows - 1.0], dtype=torch.float32, device=world.device)
     picked = torch.minimum(picked.clamp_min(0.0), lim)
     points = torch.where(live[..., None], picked, torch.full_like(picked, -1.0))

@@ -18,6 +18,7 @@ of the kept outputs and is judged by the same rule.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import importlib.util
 import json
@@ -32,12 +33,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import compare, generator, peaks, program, tracing
+from . import compare, peaks, program, tracing
 
 VOBENCH = Path(__file__).resolve().parent
 REPO = VOBENCH.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "visual_odometry_tpu")
 WARMUP_CALLS = 3   # set-up calls, of distinct pool items: every call of a cell has one shape
+MEASUREMENTS = ("points", "appearances", "masks")   # what every pool holds
+DEFAULT_GENERATOR = "vobench/generator.py"
 
 
 def load_json(path: Path) -> dict:
@@ -45,8 +48,10 @@ def load_json(path: Path) -> dict:
         return json.load(f)
 
 
+@functools.cache
 def load_module(path: Path):
-    """A module from its file, by path (metric names hold dots)."""
+    """A module from its file, by path (metric names hold dots); each file is
+    executed once a process."""
     spec = importlib.util.spec_from_file_location(f"vobench_dyn.{path.parent.name}.{path.stem}",
                                                   path)
     module = importlib.util.module_from_spec(spec)
@@ -65,6 +70,7 @@ class Cell:
     per_layer: list
     entry_path: Path
     reference_path: Path
+    generator_path: Path
 
 
 def _for_cell(metrics: list, name: str) -> list:
@@ -111,21 +117,32 @@ def cell(name: str, root: Path = REPO) -> Cell:
     if not entry.exists():
         raise FileNotFoundError(f"traffic {w['traffic']!r} names the entry {traffic['entry']!r}, "
                                 f"which has no driver {entry}")
-    reference = root / config["reference"]
-    if not reference.is_file():
-        raise FileNotFoundError(f"configuration {w['config']!r} names the reference "
-                                f"{config['reference']!r}, which is no file {reference}")
+    named = {}
+    for key, default in (("reference", None), ("generator", DEFAULT_GENERATOR)):
+        rel = config[key] if default is None else config.get(key, default)
+        named[key] = root / rel
+        if not named[key].is_file():
+            raise FileNotFoundError(f"configuration {w['config']!r} names the {key} {rel!r}, "
+                                    f"which is no file {named[key]}")
     return Cell(name=name, chips=int(w["chips"]), config=config, traffic=traffic, limits=limits,
                 end_to_end=readers(bench["end_to_end"]), per_layer=readers(bench["per_layer"]),
-                entry_path=entry, reference_path=reference)
+                entry_path=entry, reference_path=named["reference"],
+                generator_path=named["generator"])
+
+
+def generator(c: Cell):
+    """The traffic generator module the cell's configuration names."""
+    return load_module(c.generator_path)
 
 
 def make_pool(c: Cell, seed: int, device) -> dict:
+    """The generator's pool: the measurements ``MEASUREMENTS`` and whatever
+    else the configuration's deployment needs."""
     t = c.traffic
-    return generator.make_pool(int(t["pool_calls"]) * int(t["sequences_per_call"]),
-                               int(c.config["frames"]), int(c.config["slots"]),
-                               int(c.config["appearance_dim"]), c.config["camera"],
-                               c.config["scene"], seed, device)
+    return generator(c).make_pool(int(t["pool_calls"]) * int(t["sequences_per_call"]),
+                                  int(c.config["frames"]), int(c.config["slots"]),
+                                  int(c.config["appearance_dim"]), c.config["camera"],
+                                  c.config["scene"], seed, device)
 
 
 def make_entry(c: Cell, pool: dict, device):
@@ -143,16 +160,19 @@ def reference(c: Cell):
 
 
 def run_reference(c: Cell, pool: dict, dtype=torch.float64) -> dict:
-    """The reference's ``track`` over the whole pool."""
+    """The reference's ``track`` over the whole pool; the pool's keys beside
+    the measurements go to it as keyword arguments."""
+    extra = {k: v for k, v in pool.items() if k not in MEASUREMENTS}
     with torch.no_grad():
-        return reference(c).track(pool["points"], pool["appearances"], pool["masks"],
-                                  c.config["vo_config"], c.config["camera"], dtype)
+        return reference(c).track(*(pool[k] for k in MEASUREMENTS), c.config["vo_config"],
+                                  c.config["camera"], dtype, **extra)
 
 
 def check(c: Cell, entry, outputs: dict, ref: dict) -> dict:
     """The worst of each compared number over the kept calls ``outputs``
     ({pool call: the program's output, ``entry.collect``-ed}) against the
-    reference: its module's ``gaps`` where it has one, else ``compare.gaps``."""
+    reference: its module's ``gaps`` where it has one, else ``compare.gaps``;
+    every number it computes."""
     gaps = getattr(reference(c), "gaps", compare.gaps)
     return compare.worst([gaps(out, compare.select(ref, entry.sequences(k)))
                           for k, out in sorted(outputs.items())])
@@ -287,13 +307,15 @@ class Context:
     chip: "peaks.Chip | None"
 
 
-def _judge(c: Cell, numbers: dict, complete: bool) -> tuple:
-    """(correct, {number: {value, limit}}): every compared number within its
-    limit, on a run whose every call succeeded and every pool item was kept."""
+def _judge(c: Cell, found: dict, complete: bool) -> tuple:
+    """(correct, {number: {value, limit}}): every number the reference
+    computes and every number the cell's limits file holds finite and within
+    its limit (one computed without a limit, or limited and not computed,
+    fails), on a run whose every call succeeded and every pool item was kept."""
     limits = c.limits or {}
     checks, correct = {}, complete and c.limits is not None
-    for name in compare.NUMBERS:
-        value = numbers.get(name, math.nan)
+    for name in dict.fromkeys([*found, *limits]):
+        value = found.get(name, math.nan)
         limit = limits.get(name)
         correct = correct and limit is not None and value == value and value <= limit
         checks[name] = {"value": value if value == value else None, "limit": limit}
@@ -324,10 +346,10 @@ def run(c: Cell, seed: int, seconds: float, trace: bool, device, started: float,
     if control is not None:
         lower = run_reference(c, pool, control)
         kept = {k: compare.select(lower, entry.sequences(k)) for k in kept}
-    numbers = check(c, entry, kept, ref) if kept else {}
+    found = check(c, entry, kept, ref) if kept else {}
     ref_s = time.perf_counter() - t_ref
     missing = sorted(set(range(entry.calls)) - set(kept))
-    correct, checks = _judge(c, numbers, win.failed == 0 and not missing)
+    correct, checks = _judge(c, found, win.failed == 0 and not missing)
     held = occupancy(c, pool, kept)
 
     chip = None
@@ -372,10 +394,12 @@ def run(c: Cell, seed: int, seconds: float, trace: bool, device, started: float,
 
 
 def occupancy(c: Cell, pool: dict, kept: dict) -> dict:
-    """The live slots a frame of the pool, and the map's fill of its capacity
-    in the kept calls: what the traffic puts through the program's state."""
-    held = generator.occupancy(pool)
-    counts = [out["map_count"].double().reshape(-1).cpu() for out in kept.values()]
+    """What the traffic puts through the program's state: the generator's
+    reading of the pool (``occupancy``) and, where the kept calls fold a
+    map (``map_count``), its fill of the capacity."""
+    held = generator(c).occupancy(pool)
+    counts = [out["map_count"].double().reshape(-1).cpu() for out in kept.values()
+              if "map_count" in out]
     if counts:
         cap = int(c.config["vo_config"]["map_capacity"])
         count = torch.cat(counts)

@@ -29,6 +29,7 @@ class Chip:
     sms: int
     fp32_ops: float       # CUDA-core FP32 operations/s
     hbm_bw: float         # device-memory bytes/s
+    tc_bf16_flops: float  # dense bf16 tensor-core FLOP/s
 
 
 def chip(name: str, sms: int) -> "Chip | None":
@@ -36,5 +37,6 @@ def chip(name: str, sms: int) -> "Chip | None":
     sheet = DATA_SHEETS.get(name)
     if sheet is None:
         return None
-    clock, hbm_bw, _ = sheet
-    return Chip(name=name, sms=int(sms), fp32_ops=sms * FP32_LANES_PER_SM * clock, hbm_bw=hbm_bw)
+    clock, hbm_bw, tc = sheet
+    return Chip(name=name, sms=int(sms), fp32_ops=sms * FP32_LANES_PER_SM * clock, hbm_bw=hbm_bw,
+                tc_bf16_flops=tc)

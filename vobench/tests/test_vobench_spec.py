@@ -66,7 +66,9 @@ def test_keys_and_names():
 @pytest.mark.parametrize("workload", [w["name"] for w in BENCH["workloads"]])
 def test_cell_files_found_by_name(workload):
     c = harness.cell(workload, REPO)
-    assert c.limits is not None and set(c.limits) == set(harness.compare.NUMBERS)
+    assert c.limits
+    if "generator" not in c.config:   # a tracking cell: the six numbers of compare.NUMBERS
+        assert set(c.limits) == set(harness.compare.NUMBERS)
     assert c.entry_path.is_file()
     assert {m["name"] for m, _ in c.end_to_end} >= {"setup_s"}
     assert len(c.end_to_end) >= 2 and c.per_layer

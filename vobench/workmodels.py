@@ -8,6 +8,9 @@ the least work any implementation with the same outputs must do: a multiply
 feeding an add counts once, each input byte is read once and each output
 byte written once, and the GN rounds are the rounds these inputs need, which
 the caller takes from the benchmark's reference, never from the program.
+
+``matcher_model`` is a frozen copy of ``utils/roofline.py``
+``matcher_model`` at commit 909746c (K7, the map-scale top-1).
 """
 
 from __future__ import annotations
@@ -37,11 +40,14 @@ class Work:
     name: str
     fp32_ops: float
     hbm_bytes: float
+    tc_flops: float = 0.0   # tensor-core FLOPs
 
     def least_s(self, chip: peaks.Chip) -> float:
-        """Least seconds on ``chip``: the larger of operations over the FP32
-        rate and bytes over the memory bandwidth."""
-        return max(self.fp32_ops / chip.fp32_ops, self.hbm_bytes / chip.hbm_bw)
+        """Least seconds on ``chip``: the largest of operations over the FP32
+        rate, tensor-core FLOPs over the bf16 tensor-core rate and bytes over
+        the memory bandwidth."""
+        return max(self.fp32_ops / chip.fp32_ops, self.tc_flops / chip.tc_bf16_flops,
+                   self.hbm_bytes / chip.hbm_bw)
 
 
 def _frame_counts(frames: int, s: int, depth: int, rounds: float, planar: bool):
@@ -68,3 +74,13 @@ def serving_model(sequences: int, frames: int, s: int, depth: int, rounds: float
     (their mean), each with its start pose."""
     ops, moved = _frame_counts(frames, s, depth, rounds, planar)
     return Work("serving", sequences * ops, sequences * (moved + 48.0) + _params_bytes(planar))
+
+
+def matcher_model(q: int, k: int, d: int) -> Work:
+    """K7, the top-1 of Q queries against K rows of D: the gram 2 Q K D on
+    the tensor cores and one compare a pair (both of the kernel's modes
+    filter on a tensor-core gram and re-select among the rows the filter
+    leaves, so one floor holds both); queries, rows and masks in, a
+    (distance, index) a query out."""
+    return Work("matcher", fp32_ops=float(q * k + (q + k) * d),
+                hbm_bytes=4.0 * d * (q + k) + q + k + 8.0 * q, tc_flops=2.0 * q * k * d)
